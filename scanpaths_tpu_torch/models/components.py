@@ -1,0 +1,352 @@
+"""Decoder building blocks (port of ``scanpaths_tpu/models/components.py``):
+the hoisted x-gates, the fused ConvLSTM cell with factorized task-signal
+gates, the history attentions, the prediction head, the OSIE
+conditioner and the exact conditioner+head composition.
+
+Parameters are held in torch layouts (``nn.Conv2d`` OIHW, ``nn.Linear``
+[out, in]) under the JAX package's names; activations are NHWC at every
+public function, as in the JAX package.  Each module computes in its
+``dtype`` (float32 or bfloat16) with float32 parameters cast at use, as
+flax's ``dtype`` does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import cell as cell_ops
+
+NEG_INF = -1e9
+
+
+def hwio(conv: nn.Conv2d):
+    """(kernel HWIO view, bias) of a conv — the JAX package's layout."""
+    return conv.weight.permute(2, 3, 1, 0), conv.bias
+
+
+def xavier_(weight, generator: torch.Generator, groups: int = 1) -> None:
+    """Xavier-normal on an OIHW kernel, per gate group: each of the
+    ``groups`` output-channel groups keeps the fan of a separate
+    per-gate conv (the reference's init)."""
+    cout, cin, kh, kw = weight.shape
+    std = math.sqrt(2.0 / (kh * kw * cin + kh * kw * cout // groups))
+    with torch.no_grad():
+        weight.copy_(torch.randn(weight.shape, generator=generator) * std)
+
+
+def conv2d(x, kernel, bias=None, strides=(1, 1), padding=((0, 0), (0, 0)),
+           dtype=None):
+    """NHWC input, HWIO kernel, NHWC output — the JAX package's
+    ``conv2d`` helper (inputs and kernel cast to ``dtype`` when given,
+    asymmetric padding allowed)."""
+    if dtype is not None:
+        x = x.to(dtype)
+        kernel = kernel.to(dtype)
+    (pt, pb), (pl, pr) = padding
+    xin = x.permute(0, 3, 1, 2)
+    if pt == pb and pl == pr:
+        pad = (pt, pl)
+    else:
+        xin = F.pad(xin, (pl, pr, pt, pb))
+        pad = 0
+    out = F.conv2d(xin, kernel.permute(3, 2, 0, 1), stride=strides,
+                   padding=pad).permute(0, 2, 3, 1)
+    if bias is not None:
+        out = out + (bias.to(out.dtype) if dtype is not None else bias)
+    return out
+
+
+def dense(lin: nn.Linear, x, dtype):
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+class XGates(nn.Module):
+    """The x-dependent ConvLSTM gate pre-activations (gate order i, f, o,
+    g), computed once per forward outside the decode loop."""
+
+    def __init__(self, embed: int = 512, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.gates_x = nn.Conv2d(embed, 4 * embed, 3, padding=1)
+
+    def forward(self, visual):
+        k, b = hwio(self.gates_x)
+        return conv2d(visual, k, b, padding=((1, 1), (1, 1)),
+                      dtype=self.dtype)
+
+
+class SignalGates(nn.Module):
+    """The 3x3 conv over the rank-1 task signal ``s (x) cv``, factorized:
+    the semantic vector is contracted into the kernel first (:meth:`kp`),
+    and the cell correlates the scalar spatial map with the result."""
+
+    def __init__(self, features: int, in_features: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def kp(self, cv):
+        """Per-sample contracted kernels [N, 9, G] (taps row-major, bias
+        not included)."""
+        k = self.weight.to(self.dtype)
+        out = torch.einsum("ochw,nc->nhwo", k, cv.to(self.dtype))
+        return out.reshape(cv.shape[0], 9, self.weight.shape[0])
+
+
+class FusedConvLSTMCell(nn.Module):
+    """ConvLSTM over the feature grid with task-signal gate injection:
+    i, f, o = sigm(Wx*x + Wh*h + Ws*ss), g = tanh(Wx*x + Wh*h),
+    c' = f*c + i*g, h' = o*c' (no tanh on c', the reference's quirk).
+
+    The x-term arrives hoisted (:class:`XGates`) with the constant biases
+    folded in once per forward (:meth:`fold_bias`); each step is one
+    ``ops.cell.cell_step``."""
+
+    def __init__(self, embed: int = 512, num_signals: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.embed, self.num_signals, self.dtype = embed, num_signals, dtype
+        self.gates_h = nn.Conv2d(embed, 4 * embed, 3, padding=1)
+        self.gates_s0 = SignalGates(3 * embed, embed, dtype)
+        if num_signals == 2:
+            self.gates_s1 = SignalGates(3 * embed, embed, dtype)
+
+    def _sgate(self, idx: int) -> SignalGates:
+        return self.gates_s0 if idx == 0 else self.gates_s1
+
+    def gate_kernel(self):
+        """The h-gate kernel in the cell's layout: HWIO [3, 3, C, 4C]."""
+        return hwio(self.gates_h)[0].to(self.dtype).contiguous()
+
+    def fold_bias(self, xg):
+        """xg + the h-gate bias + the summed signal biases (i/f/o)."""
+        sb = sum(self._sgate(i).bias for i in range(self.num_signals))
+        bias = self.gates_h.bias + F.pad(sb, (0, self.embed))
+        return (xg + bias.to(self.dtype)).contiguous()
+
+    def forward(self, xg, h, c, signals, kh=None):
+        """xg: folded x-gates [N, H, W, 4C]; h, c: [N, H, W, C];
+        signals: one (spatial [N, H, W], semantic [N, C]) pair per
+        stream; kh: :meth:`gate_kernel`, hoisted by the caller.  Returns
+        (h', c') — ``c`` is updated in place."""
+        smaps = torch.stack([s for s, _ in signals], dim=-1).to(self.dtype)
+        kps = torch.stack([self._sgate(i).kp(cv)
+                           for i, (_, cv) in enumerate(signals)], dim=1)
+        if kh is None:
+            kh = self.gate_kernel()
+        return cell_ops.cell_step(h, c, xg, smaps.contiguous(),
+                                  kps.contiguous(), kh)
+
+
+class SemanticAttention(nn.Module):
+    """Additive attention over the channel-semantic history; ``project``
+    runs once per entry when it is written."""
+
+    def __init__(self, embed: int = 512, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.lists = nn.Linear(embed, embed)
+        self.cur = nn.Linear(embed, embed)
+        self.att = nn.Linear(embed, 1)
+
+    def project(self, feat):
+        return dense(self.lists, feat, self.dtype)
+
+    def forward(self, hist_feat, hist_proj, cur_feat, valid):
+        """hist_feat/hist_proj: [N, T1, E]; cur_feat: [N, E]; valid: [T1]."""
+        cur = dense(self.cur, cur_feat, self.dtype)[:, None, :]
+        scores = dense(self.att, hist_proj + cur, self.dtype)[..., 0]
+        w = torch.softmax(scores.masked_fill(~valid[None, :], NEG_INF), dim=1)
+        return torch.einsum("nt,nte->ne", w, hist_feat)
+
+
+class SpatialAttention(nn.Module):
+    """Attention over the spatial-map history.  The reference's
+    (map_h, map_w)-kernel scoring conv is a Linear [HW -> 1] over the
+    row-major flattened map."""
+
+    def __init__(self, map_h: int = 30, map_w: int = 40,
+                 dtype=torch.float32):
+        super().__init__()
+        self.map_h, self.map_w, self.dtype = map_h, map_w, dtype
+        self.lists_conv = nn.Conv2d(1, 1, 3, padding=1)
+        self.cur_conv = nn.Conv2d(1, 1, 3, padding=1)
+        self.att = nn.Linear(map_h * map_w, 1)
+
+    def _conv(self, conv, flat):
+        n = flat.shape[0]
+        m = flat.reshape(n, 1, self.map_h, self.map_w).to(self.dtype)
+        out = F.conv2d(m, conv.weight.to(self.dtype),
+                       conv.bias.to(self.dtype), padding=1)
+        return out.reshape(n, -1)
+
+    def project(self, feat_flat):
+        """[N, HW] -> 3x3-conv'd [N, HW]."""
+        return self._conv(self.lists_conv, feat_flat)
+
+    def forward(self, hist_feat, hist_conv, cur_feat, valid):
+        """hist_*: [N, T1, HW]; cur_feat: [N, HW]; valid: [T1]."""
+        n, _, hw = hist_feat.shape
+        cur = self._conv(self.cur_conv, cur_feat).reshape(n, 1, hw)
+        scores = dense(self.att, hist_conv + cur, self.dtype)[..., 0]
+        w = torch.softmax(scores.masked_fill(~valid[None, :], NEG_INF), dim=1)
+        return torch.einsum("nt,nth->nh", w, hist_feat)
+
+
+class PredictHead(nn.Module):
+    """Action logits + LogNormal duration head.  Only its parameters and
+    the duration tail are used directly: the per-step evaluation is the
+    composed conditioner+head (:func:`apply_fused_cond_head`)."""
+
+    def __init__(self, map_h: int = 30, map_w: int = 40, embed: int = 512,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.sal_layer_2 = nn.Conv2d(embed, 1, 1)
+        self.drt_layer_1 = nn.Conv2d(embed, 1, 7)
+        self.drt_layer_2 = nn.Conv2d(1, 2, (map_h // 5, map_w // 5))
+        self.sal_layer_3 = nn.Conv2d(embed, 1, 1)
+
+    def raw(self) -> dict:
+        """Every head parameter as (kernel HWIO, bias)."""
+        return {"w2": hwio(self.sal_layer_2), "kd": hwio(self.drt_layer_1),
+                "kd2": hwio(self.drt_layer_2), "w3": hwio(self.sal_layer_3)}
+
+    def finish_duration(self, d):
+        """relu -> drt_layer_2 -> (mu, sigma2), both float32 [N]; ``d``
+        [N, h5, w5] is the raw drt_layer_1 output."""
+        n = d.shape[0]
+        k2, b2 = hwio(self.drt_layer_2)
+        t = conv2d(F.relu(d)[..., None], k2, b2, dtype=self.dtype)
+        t = t.reshape(n, 2).float()
+        return t[:, 0], torch.exp(t[:, 1])
+
+
+class Conditioner(nn.Module):
+    """The OSIE task conditioner: one 5x5 C->C conv ahead of the head
+    (the reference's ``performance_sal_layer``).  AiR's dual and COCO's
+    bank modes are not ported yet."""
+
+    def __init__(self, embed: int = 512):
+        super().__init__()
+        self.sal_layer = nn.Conv2d(embed, embed, 5, padding=2)
+
+    def kernels(self):
+        """[(kernel HWIO, bias)] per stream — the fusion inputs."""
+        return [hwio(self.sal_layer)]
+
+
+# ---------------------------------------------------------------------------
+# Fused conditioner+head evaluation
+#
+# The conditioner's 5x5 conv output feeds the head with no nonlinearity
+# in between, and every head consumer of it is a linear C->1 conv, so
+# the chain composes exactly: contract the conditioner kernel with each
+# head kernel once per forward and apply only C->1 convs per step.  The
+# drt composition (7x7 stride 5 after 5x5, both zero-padded) is an 11x11
+# stride-5 conv on the zero-extended input plus corrections for the
+# windows that overlap the conditioner's zero padding (output row 0 and
+# column 0 when H and W are divisible by 5).
+# ---------------------------------------------------------------------------
+
+
+def _rowcomp(k1row, kdrow):
+    """1-D kernel composition: out[q, i] = sum_{b+dx=q} kdrow[b, o] *
+    k1row[dx, i, o], with dx in 0..4, b in 0..6, q in 0..10."""
+    parts = torch.einsum("xio,bo->bxi", k1row, kdrow)   # [7, 5, C]
+    out = k1row.new_zeros((11, k1row.shape[1]))
+    for b in range(7):
+        out[b:b + 5] += parts[b]
+    return out
+
+
+def fuse_cond_head(k1, b1, head_raw: dict, map_h: int, map_w: int) -> dict:
+    """Compose a [5, 5, C, C] HWIO conditioner kernel/bias with the
+    head's three C->1 convs (``PredictHead.raw``).  All maths in the
+    parameters' dtype.  Returns the tensors
+    :func:`apply_fused_cond_head` consumes."""
+    c = k1.shape[2]
+    w2k, w2b = head_raw["w2"]
+    w3k, w3b = head_raw["w3"]
+    kdk, kdb = head_raw["kd"]
+    w2 = w2k[0, 0, :, 0]
+    w3 = w3k[0, 0, :, 0]
+    kd = kdk[..., 0]                                    # [7, 7, Co]
+
+    # 1x1 head convs compose exactly (stop map + action map)
+    k_sa = torch.stack([torch.einsum("yxco,o->yxc", k1, w2),
+                        torch.einsum("yxco,o->yxc", k1, w3)], dim=-1)
+    b_sa = torch.stack([b1 @ w2 + w2b[0], b1 @ w3 + w3b[0]])
+
+    # drt main term: the 11x11 composite kernel, a "full" correlation of
+    # the conditioner kernel (as C images of 5x5xCo) with the flipped drt
+    # kernel
+    lhs = k1.permute(2, 0, 1, 3)                        # [C, 5, 5, Co]
+    rhsf = kd.flip(0, 1)[..., None]                     # [7, 7, Co, 1]
+    keff = conv2d(lhs, rhsf, padding=((6, 6), (6, 6)))  # [C, 11, 11, 1]
+    keff = keff[..., 0].permute(1, 2, 0)[..., None]     # [11, 11, C, 1]
+
+    # border corrections: virtual conditioner rows/cols -2 and -1 that
+    # the zero-extended main term wrongly includes
+    wr = torch.stack([_rowcomp(k1[4], kd[0]) + _rowcomp(k1[3], kd[1]),
+                      _rowcomp(k1[4], kd[1])])          # [2(y), 11(q), C]
+    wc0 = _rowcomp(k1[:, 4], kd[:, 0]) + _rowcomp(k1[:, 3], kd[:, 1])
+    wc1 = _rowcomp(k1[:, 4], kd[:, 1])
+    wc = torch.stack([wc0, wc1], dim=1)                 # [11(p), 2(x), C]
+
+    # the corner is subtracted twice above: add it back once
+    def cc_term(y, x):
+        acc = k1.new_zeros((c,))
+        for j in range(y, 2):
+            for k in range(x, 2):
+                acc = acc + torch.einsum("o,io->i", kd[j, k],
+                                         k1[y + 4 - j, x + 4 - k])
+        return acc
+    wcc = torch.stack([torch.stack([cc_term(0, 0), cc_term(0, 1)]),
+                       torch.stack([cc_term(1, 0), cc_term(1, 1)])])
+
+    # conditioner bias through the drt window, clipped to the image: a
+    # geometry-dependent [h5, w5] constant map
+    k2b1 = torch.einsum("abo,o->ab", kd, b1)
+    ones = k1.new_ones((1, map_h, map_w, 1))
+    b1map = conv2d(ones, k2b1[..., None, None], strides=(5, 5),
+                   padding=((2, 2), (2, 2)))[0, ..., 0]
+
+    return {"k_sa": k_sa, "b_sa": b_sa, "keff": keff, "wr": wr, "wc": wc,
+            "wcc": wcc, "b1map": b1map, "bd": kdb[0]}
+
+
+def apply_fused_cond_head(h, fused: dict, dtype):
+    """Apply the composed conditioner+head to the ConvLSTM state ``h``
+    [N, H, W, C].  Returns (stop_logit [N, 1], amap [N, H, W], drt_raw
+    [N, h5, w5]) in float32 (float64 when ``h`` is), drt_raw being the
+    pre-relu drt_layer_1 output for :meth:`PredictHead.finish_duration`."""
+    n = h.shape[0]
+    hi_t = torch.promote_types(torch.float32, h.dtype)
+    hc = h.to(dtype)
+    sa = conv2d(hc, fused["k_sa"], padding=((2, 2), (2, 2)), dtype=dtype)
+    sa = sa.to(hi_t) + fused["b_sa"]
+    main = conv2d(hc, fused["keff"], strides=(5, 5),
+                  padding=((4, 2), (4, 2)), dtype=dtype)[..., 0].to(hi_t)
+    stop_logit = sa[..., 0].reshape(n, -1).mean(dim=-1, keepdim=True)
+    amap = F.relu(sa[..., 1])
+    # the corrections run on thin border strips, in full precision: the
+    # 1-wide strided convs over the 2-row / 2-column strips, as windows
+    # (unfold, 11 wide, stride 5, zero padding 4 / 2) contracted in one
+    # einsum each
+    h32 = h.to(hi_t)
+    rows = F.pad(h32[:, :2], (0, 0, 4, 2)).unfold(2, 11, 5)  # [N,2,w5,C,11]
+    crow = torch.einsum("nyjcq,yqc->nj", rows, fused["wr"].to(hi_t))
+    cols = F.pad(h32[:, :, :2], (0, 0, 0, 0, 4, 2)).unfold(1, 11, 5)
+    ccol = torch.einsum("nixcp,pxc->ni", cols, fused["wc"].to(hi_t))
+    ccorn = torch.einsum("nyxc,yxc->n", h32[:, :2, :2], fused["wcc"])
+    d = main + fused["b1map"][None] + fused["bd"]
+    d[:, 0, :] -= crow
+    d[:, :, 0] -= ccol
+    d[:, 0, 0] += ccorn
+    return stop_logit, amap, d

@@ -1,0 +1,163 @@
+"""Weights carried into the port's :class:`ScanpathModel` (OSIE).
+
+* :func:`load_reference_state_dict` — a state dict in the reference's
+  torch layout (the reference's own checkpoints, or what
+  ``scanpaths_tpu/models/port.py::export_reference_state_dict`` writes)
+  -> the port's state dict.  The per-gate convs of the ConvLSTM are
+  concatenated into its fused convs here, at load time.
+* :func:`from_jax_params` — the JAX package's flax trees (nested dicts
+  of numpy arrays) -> the port's state dict, through the reference
+  layout: HWIO -> OIHW, Dense [in, out] -> Linear [out, in].
+
+Both return a dict for ``ScanpathModel.load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+GATES_XH = ("input", "forget", "output", "memory")   # fused order i,f,o,g
+GATES_S = ("input", "forget", "output")              # fused order i,f,o
+_STAGE_INDEX = {"4": 1, "5": 2, "6": 3, "7": 4}      # resnet.<i> -> layer
+_HEAD = ("sal_layer_2", "sal_layer_3", "drt_layer_1", "drt_layer_2")
+
+
+def load_reference_state_dict(sd: dict, task: str = "osie") -> dict:
+    """Reference-layout state dict (a bare state dict or a
+    ``{"model": state_dict, ...}`` checkpoint, optional ``module.``
+    prefixes) -> the port's ``ScanpathModel`` state dict."""
+    if task != "osie":
+        raise NotImplementedError(f"task {task!r}: only OSIE is ported")
+    sd = sd.get("model", sd)
+    sd = {k.removeprefix("module."): (v if isinstance(v, torch.Tensor)
+                                      else torch.tensor(np.array(v)))
+          for k, v in sd.items()}
+    out: dict[str, torch.Tensor] = {}
+
+    # trunk: the reference strips resnet50 into an nn.Sequential whose
+    # children 0, 1, 4..7 are conv1, bn1, layer1..layer4
+    for key, v in sd.items():
+        if not key.startswith("resnet."):
+            continue
+        idx, rest = key[len("resnet."):].split(".", 1)
+        if idx == "0":
+            name = f"conv1.{rest}"
+        elif idx == "1":
+            name = f"bn1.{rest}"
+        else:
+            bi, rest = rest.split(".", 1)
+            rest = rest.replace("downsample.0.", "downsample_conv.") \
+                       .replace("downsample.1.", "downsample_bn.")
+            name = f"layer{_STAGE_INDEX[idx]}_block{bi}.{rest}"
+        out[f"backbone.{name}"] = v
+    for key in [k for k in out if k.endswith(".running_var")]:
+        nbt = key.replace(".running_var", ".num_batches_tracked")
+        out.setdefault(nbt, torch.tensor(0, dtype=torch.long))
+
+    def copy(dst, src):
+        out[f"{dst}.weight"] = sd[f"{src}.weight"]
+        out[f"{dst}.bias"] = sd[f"{src}.bias"]
+
+    def stack(dst, srcs):
+        out[f"{dst}.weight"] = torch.cat([sd[f"{s}.weight"] for s in srcs])
+        out[f"{dst}.bias"] = torch.cat([sd[f"{s}.bias"] for s in srcs])
+
+    copy("sal_conv", "sal_conv")
+    stack("xgates.gates_x", [f"lstm.{g}_x" for g in GATES_XH])
+    stack("lstm.gates_h", [f"lstm.{g}_h" for g in GATES_XH])
+    stack("lstm.gates_s0", [f"lstm.{g}" for g in GATES_S])
+    copy("semantic_embed", "semantic_embed")
+    copy("spatial_embed", "spatial_embed")
+    copy("semantic_att.lists", "semantic_att.semantic_lists")
+    copy("semantic_att.cur", "semantic_att.semantic_cur")
+    copy("semantic_att.att", "semantic_att.semantic_attention")
+    copy("spatial_att.lists_conv", "spatial_att.spatial_lists")
+    copy("spatial_att.cur_conv", "spatial_att.spatial_cur")
+    # the (map_h, map_w)-kernel scoring conv is a Linear over the
+    # row-major flattened map: [1, 1, H, W] -> [1, H*W]
+    copy("spatial_att.att", "spatial_att.spatial_attention")
+    out["spatial_att.att.weight"] = out["spatial_att.att.weight"].reshape(
+        1, -1)
+    copy("conditioner.sal_layer", "performance_sal_layer")
+    for name in _HEAD:
+        copy(f"head.{name}", f"object_head.{name}")
+    return out
+
+
+def _flax_to_reference(params: dict, batch_stats: dict, map_h: int,
+                       map_w: int) -> dict:
+    """The JAX OSIE model's flax trees -> reference-layout numpy state
+    dict, at any map geometry."""
+    sd: dict[str, np.ndarray] = {}
+    a = np.asarray
+
+    def conv(name, leaf):
+        sd[f"{name}.weight"] = np.transpose(a(leaf["kernel"]), (3, 2, 0, 1))
+        if "bias" in leaf:
+            sd[f"{name}.bias"] = a(leaf["bias"])
+
+    def lin(name, leaf):
+        sd[f"{name}.weight"] = np.transpose(a(leaf["kernel"]), (1, 0))
+        sd[f"{name}.bias"] = a(leaf["bias"])
+
+    def bn(name, p, s):
+        sd[f"{name}.weight"] = a(p["scale"])
+        sd[f"{name}.bias"] = a(p["bias"])
+        sd[f"{name}.running_mean"] = a(s["mean"])
+        sd[f"{name}.running_var"] = a(s["var"])
+
+    bp, bs = params["backbone"], batch_stats["backbone"]
+    conv("resnet.0", bp["conv1"])
+    bn("resnet.1", bp["bn1"], bs["bn1"])
+    stage_child = {v: k for k, v in _STAGE_INDEX.items()}
+    for key in bp:
+        if not key.startswith("layer"):
+            continue
+        stage, block = key[len("layer"):].split("_block")
+        pre = f"resnet.{stage_child[int(stage)]}.{block}"
+        for ci in (1, 2, 3):
+            conv(f"{pre}.conv{ci}", bp[key][f"conv{ci}"])
+            bn(f"{pre}.bn{ci}", bp[key][f"bn{ci}"], bs[key][f"bn{ci}"])
+        if "downsample_conv" in bp[key]:
+            conv(f"{pre}.downsample.0", bp[key]["downsample_conv"])
+            bn(f"{pre}.downsample.1", bp[key]["downsample_bn"],
+               bs[key]["downsample_bn"])
+
+    conv("sal_conv", params["sal_conv"])
+
+    def split_gates(leaf, names, suffix):
+        ks = np.split(a(leaf["kernel"]), len(names), axis=-1)
+        bs_ = np.split(a(leaf["bias"]), len(names))
+        for g, k, b in zip(names, ks, bs_):
+            sd[f"lstm.{g}{suffix}.weight"] = np.transpose(k, (3, 2, 0, 1))
+            sd[f"lstm.{g}{suffix}.bias"] = b
+
+    split_gates(params["xgates"]["gates_x"], GATES_XH, "_x")
+    split_gates(params["lstm"]["gates_h"], GATES_XH, "_h")
+    split_gates(params["lstm"]["gates_s0"], GATES_S, "")
+    lin("semantic_embed", params["semantic_embed"])
+    lin("spatial_embed", params["spatial_embed"])
+    for ours, ref in (("lists", "semantic_lists"), ("cur", "semantic_cur"),
+                      ("att", "semantic_attention")):
+        lin(f"semantic_att.{ref}", params["semantic_att"][ours])
+    conv("spatial_att.spatial_lists", params["spatial_att"]["lists_conv"])
+    conv("spatial_att.spatial_cur", params["spatial_att"]["cur_conv"])
+    att = params["spatial_att"]["att"]
+    sd["spatial_att.spatial_attention.weight"] = \
+        a(att["kernel"]).T.reshape(1, 1, map_h, map_w)
+    sd["spatial_att.spatial_attention.bias"] = a(att["bias"])
+    conv("performance_sal_layer", params["conditioner"]["sal_layer"])
+    for name in _HEAD:
+        conv(f"object_head.{name}", params["head"][name])
+    return sd
+
+
+def from_jax_params(params: dict, batch_stats: dict, task: str = "osie",
+                    map_h: int = 30, map_w: int = 40) -> dict:
+    """The JAX package's (params, batch_stats) flax trees, as nested
+    dicts of numpy arrays -> the port's ``ScanpathModel`` state dict."""
+    if task != "osie":
+        raise NotImplementedError(f"task {task!r}: only OSIE is ported")
+    return load_reference_state_dict(
+        _flax_to_reference(params, batch_stats, map_h, map_w), task)

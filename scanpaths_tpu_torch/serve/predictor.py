@@ -1,0 +1,79 @@
+"""The model and decoders that ``cli/predict.py`` serves.
+
+:class:`Predictor` builds the OSIE :class:`ScanpathModel` from the
+parsed flags on an explicit device, loads its weights from a
+reference-layout torch checkpoint (``<evaluation_dir>/checkpoints/
+checkpoint_best.pth``, the reference's own best-model file) or, with no
+``--evaluation_dir``, makes them from ``--seed``, and decodes the eval
+forward's distributions greedily or by sampling.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+from scanpaths_tpu.core.grid import GridSpec
+
+from ..models.port import load_reference_state_dict
+from ..models.scanpath_model import ScanpathModel, init_weights
+from ..ops.sampling import SampleOut, greedy_sample, random_sample
+
+
+def checkpoint_path(evaluation_dir: str) -> str:
+    return os.path.join(evaluation_dir, "checkpoints", "checkpoint_best.pth")
+
+
+class Predictor:
+    def __init__(self, args, device):
+        self.args = args
+        self.device = torch.device(device)
+        self.grid = GridSpec(map_width=args.map_width,
+                             map_height=args.map_height, width=args.width,
+                             height=args.height, max_length=args.max_length,
+                             min_length=args.min_length)
+        layers = tuple(int(v) for v in str(args.backbone_layers).split(","))
+        self.model = ScanpathModel(
+            args.task, embed=args.embed, seq_len=args.max_length,
+            map_h=args.map_height, map_w=args.map_width,
+            backbone_layers=layers,
+            dtype=torch.bfloat16 if args.half_precision else torch.float32)
+        if args.evaluation_dir:
+            path = checkpoint_path(args.evaluation_dir)
+            if not os.path.isfile(path):
+                raise FileNotFoundError(
+                    f"{path}: no reference-layout torch checkpoint (flax "
+                    "msgpack checkpoints of the JAX package are not read "
+                    "by the port yet)")
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            self.model.load_state_dict(
+                load_reference_state_dict(ckpt, args.task))
+        else:
+            print(f"[predict] no --evaluation_dir: weights made from seed "
+                  f"{args.seed}", file=sys.stderr)
+            init_weights(self.model, args.seed)
+        self.model.to(self.device).eval()
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(args.seed)
+
+    def forward(self, images: np.ndarray) -> dict:
+        """NHWC float32 images [N, height, width, 3] -> the eval output
+        dict, on the device."""
+        return self.model(torch.from_numpy(images).to(self.device))
+
+    def decode(self, out: dict, decode: str, num_samples: int) -> SampleOut:
+        """Greedy (one scanpath per image) or ``num_samples`` sampled
+        scanpaths per image; every leaf leads with the [R] rollout axis."""
+        probs = out["all_actions_prob"]
+        mu, sigma2 = out["log_normal_mu"], out["log_normal_sigma2"]
+        if decode == "greedy":
+            s = greedy_sample(probs, mu, sigma2, self.grid)
+            return SampleOut(*(v[None] for v in s))
+        r = num_samples
+        return random_sample(probs.expand(r, *probs.shape),
+                             mu.expand(r, *mu.shape),
+                             sigma2.expand(r, *sigma2.shape), self.grid,
+                             self.generator)
