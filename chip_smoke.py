@@ -3,23 +3,36 @@
 
     python3 chip_smoke.py
 
-Phases, each reporting on its own lines:
+Phases, each reporting on its own lines and with its wall time:
 
 1. device: fails unless CUDA is available; prints the card's name and
    power limit as nvidia-smi reports them;
 2. build: compiles the port's CUDA kernels from csrc/ and prints the
    build time and the compiler's register/spill report;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and a ragged small one, in float32 (TF32
-   off) and bfloat16; prints the max abs error and the times, fails
-   beyond the tolerance;
-4. slice: serves 12 images through scanpaths_tpu_torch.cli.predict at
-   full width (ResNet-50, embed 512, 240x320, T=16, batch 8, weights
+3. data: writes a synthetic OSIE test split from a seed (32 images of
+   800x600, 15 subjects each, 3-20 fixations of 100-800 ms) and a
+   reference-layout checkpoint_best.pth of seed weights;
+4. kernels: each kernel against its plain PyTorch version on the card,
+   at the main path's shapes and ragged small ones: the cell and stage
+   kernels in float32 (TF32 off) and bfloat16 within a tolerance, the
+   NW kernel exactly (max abs error 0, NaN in the same places) on the
+   device sweep's human-baseline batch for both ScanMatch tables; prints
+   the max abs error, the times and the least time the card could take;
+5. serving slice: serves 12 images through scanpaths_tpu_torch.cli.predict
+   at full width (ResNet-50, embed 512, 240x320, T=16, batch 8, weights
    from a seed), greedy and sampled, float32 and bfloat16; checks the
    records and that every forward launched the cell kernel 16 times and
    the stage kernel 3 times; then runs one forward through the kernels
    and through the plain versions and compares them;
-5. prints the kernels' JSON line, then {"ok": true, "device": ...} as
+6. test slice: runs scanpaths_tpu_torch.cli.test --device_eval true at
+   full width (batch 16, 10 repeats) over the synthetic split in
+   float32 and bfloat16; checks the prediction records and the launch
+   counts (per forward 16 cell and 3 stage launches; 2 NW launches per
+   human-baseline batch and per repeat of a batch); then holds the
+   float32 device sweep to the host suite on the first batch's human
+   baseline and first two repeats (rtol 2e-4, atol 2e-5; the rollouts'
+   durations capped on both sides, see compare_with_host);
+7. prints the kernels' JSON line, then {"ok": true, "device": ...} as
    the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -42,9 +55,53 @@ import torch
 
 F32_TOL = 1e-4   # atol = rtol, float32 with TF32 off
 BF16_TOL = 2e-2  # atol = rtol, bfloat16 storage, float32 accumulation
+HOST_RTOL, HOST_ATOL = 2e-4, 2e-5  # device sweep vs host suite
 IMAGES = 12
 BATCH = 8
 SEQ = 16
+TEST_IMAGES, TEST_SUBJECTS, TEST_BATCH, REPEATS = 32, 15, 16, 10
+PRED_DURATION_CAP = 0.8  # s, the split's longest fixation; 16 x 16 symbols
+
+# Published H100 SXM peaks (dense): float32 on the CUDA cores, bf16 on
+# the tensor cores, HBM bandwidth.  A kernel's bound is the larger of
+# its operations over the peak for their type and its bytes (each input
+# read once, each output written once) over the bandwidth.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
+# float operations per NW DP cell: 2 subs, 2 muls, add, sqrt, sub (the
+# substitution score), the diag add, and 3 maxes (cand, running max,
+# combine)
+NW_OPS_PER_CELL = 11
+
+
+def _bound(flops, nbytes, peak):
+    """(bound_ms, bound_by) of a call."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cell_bound(n, h, w, c, s, dtype):
+    """The cell step: the 3x3 C->4C gate conv, the signal taps, the xg
+    add and the state update, over h, c, xg, smaps, kps, kh in and h', c'
+    out."""
+    p = n * h * w
+    flops = 2 * p * (9 * c * 4 * c + 9 * s * 3 * c) + 4 * p * c + 4 * p * c
+    elems = 2 * p * c + 4 * p * c + p * s + n * s * 27 * c + 36 * c * c \
+        + 2 * p * c
+    return _bound(flops, elems * dtype.itemsize, PEAK_FLOPS[dtype])
+
+
+def stage_work(n, h, w, c, m, nb, dtype):
+    """(operations, bytes) of one stage of nb bottleneck blocks: three
+    products each (1x1 C->M, 3x3 M->M, 1x1 M->C) over x and the folded
+    weights in, y out."""
+    p = n * h * w
+    per_block = c * m + 9 * m * m + m * c
+    flops = 2 * p * nb * per_block
+    nbytes = dtype.itemsize * (2 * p * c + nb * per_block) \
+        + 4 * nb * (2 * m + c)
+    return flops, nbytes
 
 
 def _close(name, got, want, tol, scaled=False):
@@ -120,8 +177,9 @@ def _stage_inputs(n, h, w, c, m, nb, dtype, gen):
 
 
 def check_kernels(cell, block):
-    """Phase 3; returns {kernel: {"max_abs_err", "ms", "plain_ms"}} at
-    the main path's shapes in float32."""
+    """The cell and stage kernels; returns {kernel: {"max_abs_err", "ms",
+    "plain_ms", "bound_ms", "bound_by"}} at the main path's shapes in
+    float32."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
     cell_cases = [("main S=1", (BATCH, 30, 40, 512, 1)),
@@ -144,10 +202,13 @@ def check_kernels(cell, block):
                 ms, plain_ms = _pair_ms(
                     lambda: cell.cell_step(a["h"], c_t, *args),
                     lambda: cell.cell_step_plain(a["h"], c_t, *args), 5)
-                line += f", {ms:.3f} ms (plain {plain_ms:.3f} ms)"
+                bound_ms, bound_by = cell_bound(*shape, dtype)
+                line += (f", {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+                         f"{bound_ms:.3f} ms by {bound_by})")
                 if label == "main S=1" and dtype == torch.float32:
-                    summary["cell_step"] = dict(max_abs_err=err, ms=ms,
-                                                plain_ms=plain_ms)
+                    summary["cell_step"] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
             print(line, flush=True)
 
     stage_cases = [("layer1", (60, 80, 256, 64, 2, 1)),
@@ -156,7 +217,7 @@ def check_kernels(cell, block):
                    ("ragged", (7, 9, 64, 32, 2, 2))]
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         dname = str(dtype).split(".")[-1]
-        total = [0.0, 0.0]
+        total = [0.0, 0.0, 0.0, 0.0]       # ms, plain ms, flops, bytes
         errs = []
         for label, (h, w, c, m, nb, dil) in stage_cases:
             a = _stage_inputs(2, h, w, c, m, nb, dtype, gen)
@@ -175,15 +236,20 @@ def check_kernels(cell, block):
                 ms, plain_ms = _pair_ms(
                     lambda: block.stage_apply(b["x"], dil, *wb),
                     lambda: block.stage_apply_plain(b["x"], dil, *wb), 5)
-                total[0] += ms
-                total[1] += plain_ms
+                flops, nbytes = stage_work(BATCH, h, w, c, m, nb, dtype)
+                for i, v in enumerate((ms, plain_ms, flops, nbytes)):
+                    total[i] += v
                 line += f", N={BATCH}: {ms:.3f} ms (plain {plain_ms:.3f} ms)"
             print(line, flush=True)
+        bound_ms, bound_by = _bound(total[2], total[3], PEAK_FLOPS[dtype])
         print(f"[kernels] stage layers 1-3 N={BATCH} {dname}: "
-              f"{total[0]:.3f} ms (plain {total[1]:.3f} ms)", flush=True)
+              f"{total[0]:.3f} ms (plain {total[1]:.3f} ms, bound "
+              f"{bound_ms:.3f} ms by {bound_by}, {total[2] / 1e9:.1f} GFLOP)",
+              flush=True)
         if dtype == torch.float32:
-            summary["stage_apply"] = dict(max_abs_err=max(errs[:3]),
-                                          ms=total[0], plain_ms=total[1])
+            summary["stage_apply"] = dict(
+                max_abs_err=max(errs[:3]), ms=total[0], plain_ms=total[1],
+                bound_ms=bound_ms, bound_by=bound_by)
     return summary
 
 
@@ -208,7 +274,8 @@ def _check_records(records, n_images, n_rollouts, width, height):
 
 
 def run_slice(cell, block, predict, tmp):
-    """Phase 4; returns the launch counts of the served runs."""
+    """The serving slice; returns the launch counts of the served
+    runs."""
     from PIL import Image
     rng = np.random.default_rng(0)
     img_dir = os.path.join(tmp, "images")
@@ -268,7 +335,7 @@ def compare_forward(cell, block, predictor_mod):
     the same weights and images: every kernel call of the served
     forward checked against its plain version on the same inputs, the
     whole outputs compared at COMPARE_SCALE, and both forwards timed."""
-    from scanpaths_tpu.core.config import parse_opt
+    from scanpaths_tpu_torch.core.config import parse_opt
     images = np.random.default_rng(1).standard_normal(
         (BATCH, 240, 320, 3)).astype(np.float32)
 
@@ -341,6 +408,282 @@ def compare_forward(cell, block, predictor_mod):
         del pred
 
 
+def write_test_split(tmp):
+    """A synthetic OSIE test split and a reference-layout checkpoint of
+    seed weights, all from seed 0.  Returns the test CLI's flags."""
+    from PIL import Image
+
+    from scanpaths_tpu_torch.models import port
+    from scanpaths_tpu_torch.models.scanpath_model import (ScanpathModel,
+                                                           init_weights)
+    rng = np.random.default_rng(0)
+    img_dir = os.path.join(tmp, "osie", "stimuli")
+    fix_dir = os.path.join(tmp, "osie", "fixations")
+    run_dir = os.path.join(tmp, "run")
+    for d in (img_dir, fix_dir, os.path.join(run_dir, "checkpoints")):
+        os.makedirs(d)
+    recs = []
+    for i in range(TEST_IMAGES):
+        name = f"{1001 + i}.jpg"
+        Image.fromarray(rng.integers(0, 256, (600, 800, 3), dtype=np.uint8)) \
+            .save(os.path.join(img_dir, name))
+        for subject in range(TEST_SUBJECTS):
+            n = int(rng.integers(3, 21))
+            recs.append({"name": name, "subject": subject,
+                         "X": rng.uniform(0, 800, n).tolist(),
+                         "Y": rng.uniform(0, 600, n).tolist(),
+                         "T": rng.uniform(100, 800, n).tolist(),
+                         "length": n})
+    with open(os.path.join(fix_dir, "osie_fixations_test.json"), "w") as f:
+        json.dump(recs, f)
+    model = ScanpathModel("osie")              # full width, float32
+    init_weights(model, 0)
+    torch.save(port.to_reference_state_dict(model.state_dict(),
+                                            model.map_h, model.map_w),
+               os.path.join(run_dir, "checkpoints", "checkpoint_best.pth"))
+    return ["--task", "osie", "--img_dir", img_dir, "--fix_dir", fix_dir,
+            "--evaluation_dir", run_dir, "--batch", str(TEST_BATCH),
+            "--eval_repeat_num", str(REPEATS), "--seed", "0",
+            "--device_eval", "true", "--device", "cuda"]
+
+
+def _first_batch(argv):
+    """The test split's first batch and the device sweep's specs, as the
+    test CLI builds them."""
+    import argparse
+
+    from scanpaths_tpu_torch.core.config import parse_opt
+    from scanpaths_tpu_torch.data.datasets import EvaluationDataset, Loader
+    from scanpaths_tpu_torch.train import trainer
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device")
+    args = parse_opt(pre.parse_known_args(argv)[1])
+    ds = EvaluationDataset("osie", trainer.data_config(args), split="test")
+    batch = next(iter(Loader(ds, batch_size=args.batch)))
+    return batch, trainer.eval_specs(ds, trainer.grid_spec(args))
+
+
+def _exact(name, got, want):
+    """Raises unless got == want bit for bit with NaN in the same
+    places; returns the max abs error (0.0)."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{name}: NaN in other places than the plain "
+                             "version's")
+    err = float((got[~nan] - want[~nan]).abs().max()) if bool((~nan).any()) \
+        else 0.0
+    if err != 0.0:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version (max abs err {err:.3g})")
+    return err
+
+
+def check_nw(nw, tm, batch, specs):
+    """The NW kernel against its plain version, exactly: on the human
+    baseline batch of the device sweep (every ordered subject pair of
+    the first batch) for both ScanMatch tables, and on ragged cases.
+    Returns the summary at the w/-duration shape."""
+    gt_fix = torch.as_tensor(batch["gt_fix"], device="cuda")
+    gt_len = torch.as_tensor(batch["gt_len"], device="cuda")
+    n, s, length = gt_fix.shape[:3]
+    fa = gt_fix[:, :, None].expand(n, s, s, length, 3).reshape(-1, length, 3)
+    fb = gt_fix[:, None].expand(n, s, s, length, 3).reshape(-1, length, 3)
+    la = gt_len[:, :, None].expand(n, s, s).reshape(-1)
+    lb = gt_len[:, None].expand(n, s, s).reshape(-1)
+    summary = None
+    for label, spec in zip(("w/ duration", "w/o duration"), specs):
+        sa, na = tm.quantize(spec, fa, la)
+        sb, nb = tm.quantize(spec, fb, lb)
+        args = (spec.threshold, spec.xbin, spec.ybin, sa.contiguous(),
+                na.contiguous(), sb.contiguous(), nb.contiguous())
+        got = nw.nw_scores_bins(*args)
+        want = nw.nw_scores_bins_plain(*args)
+        torch.cuda.synchronize()
+        err = _exact(f"nw {label}", got, want)
+        ms, plain_ms = _pair_ms(lambda: nw.nw_scores_bins(*args),
+                                lambda: nw.nw_scores_bins_plain(*args), 3)
+        b, ta = sa.shape
+        tb = sb.shape[1]
+        cells = int((na.clamp(0, ta).long() * nb.clamp(0, tb).long()).sum())
+        bound_ms, bound_by = _bound(NW_OPS_PER_CELL * cells,
+                                    4 * (b * (ta + tb) + 3 * b),
+                                    PEAK_FLOPS[torch.float32])
+        print(f"[kernels] nw {label} human baseline B={b} Ta=Tb={ta}: "
+              f"max_abs_err {err}, NaN {int(torch.isnan(got).sum())}, "
+              f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
+              f"ms by {bound_by}: {cells} DP cells; the longest row chain "
+              f"is {int(na.max())} rows)", flush=True)
+        if summary is None:
+            summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, ta, tb in ((64, 37, 300), (48, 5, 1000), (40, 256, 256)):
+        def ints(hi, *shape):
+            return torch.randint(0, hi, shape, generator=gen, device="cuda",
+                                 dtype=torch.int32)
+        sa, sb = ints(192, b, ta), ints(192, b, tb)
+        na, nb = ints(ta + 1, b), ints(tb + 1, b)
+        na[:4], nb[2:6] = 0, 0          # empty, one-sided and both empty
+        na[6:9], nb[7:10] = ta, tb      # lengths at the bound
+        args = (3.5, 16, 12, sa, na, sb, nb)
+        got = nw.nw_scores_bins(*args)
+        want = nw.nw_scores_bins_plain(*args)
+        torch.cuda.synchronize()
+        err = _exact(f"nw ragged B={b} Ta={ta} Tb={tb}", got, want)
+        print(f"[kernels] nw ragged B={b} Ta={ta} Tb={tb}: max_abs_err {err}, "
+              f"NaN {int(torch.isnan(got).sum())} (plain "
+              f"{int(torch.isnan(want).sum())})", flush=True)
+    return summary
+
+
+def _tree_close(name, want, got, skip=()):
+    """Raises unless two metric trees agree within the host bound; keys
+    in ``skip`` are not compared.  Returns the max abs difference."""
+    worst = 0.0
+    for k in want:
+        if k in skip:
+            continue
+        if isinstance(want[k], dict):
+            worst = max(worst, _tree_close(f"{name}/{k}", want[k], got[k],
+                                           skip))
+            continue
+        w, g = float(want[k]), float(got[k])
+        if math.isnan(w) and math.isnan(g):
+            continue
+        if not abs(g - w) <= HOST_ATOL + HOST_RTOL * abs(w):
+            raise AssertionError(f"{name}/{k}: device {g} vs host {w}")
+        worst = max(worst, abs(g - w))
+    return worst
+
+
+def compare_with_host(device_eval, heval, batch, specs, captured):
+    """The float32 device sweep against the host suite on the first
+    batch's human baseline and its first two repeats.
+
+    The seed-weight model samples LogNormal durations of up to hours,
+    which the host ScanMatch expands into millions of symbols (it ran a
+    96 GiB machine out of memory) and the device sweep truncates at its
+    table by design.  So both sides get the captured rollouts with their
+    durations capped at PRED_DURATION_CAP: every rollout then fits the
+    w/-duration table and all nine columns compare."""
+    from scanpaths_tpu_torch.core.grid import fix_vector
+    t0 = time.perf_counter()
+    want = heval.human_evaluation([batch])[:2]
+    got = device_eval.human_evaluation_device([batch], *specs,
+                                              device="cuda")[:2]
+    err_h = max(_tree_close(f"human {part}", w, g)
+                for part, w, g in zip(("metrics", "stds"), want, got))
+    sweep = device_eval.DeviceSweep(*specs)
+    gts, preds, capped = [], [], 0
+    for gt_fix, gt_len, gt_mask, pred_fix, pred_len in captured:
+        valid = torch.arange(pred_fix.shape[1], device=pred_fix.device) \
+            < pred_len[:, None]
+        capped += int(((pred_fix[..., 2] > PRED_DURATION_CAP) & valid).sum())
+        pred_fix = pred_fix.clone()
+        pred_fix[..., 2].clamp_(max=PRED_DURATION_CAP)
+        sweep.add_batch(gt_fix, gt_len, gt_mask, pred_fix, pred_len)
+        gts.extend(batch["fix_vectors"])
+        fix, lens = pred_fix.cpu().numpy(), pred_len.cpu().numpy()
+        preds.extend(fix_vector(fix[i, :n, 0], fix[i, :n, 1], fix[i, :n, 2])
+                     for i, n in enumerate(lens))
+    if sweep.overflow["count"]:
+        raise AssertionError(f"capped rollouts overflow the w/-duration "
+                             f"table: {sweep.overflow}")
+    want = heval.evaluation(gts, preds)[:2]
+    got = sweep.result()
+    err_p = max(_tree_close(f"repeats {part}", w, g)
+                for part, w, g in zip(("metrics", "stds"), want, got))
+    print(f"[test] float32 device sweep vs host suite, first batch: human "
+          f"baseline ({len(batch['img_names'])} images, "
+          f"{sum(len(v) * (len(v) - 1) for v in batch['fix_vectors'])} "
+          f"pairs) max abs diff {err_h:.3g}; repeats 1-2 ({len(preds)} "
+          f"rollouts, {capped} fixations capped at {PRED_DURATION_CAP} s) "
+          f"max abs diff {err_p:.3g}; rtol {HOST_RTOL}, atol {HOST_ATOL}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _check_tree(metrics):
+    """The metric tree of a test run: ScanMatch in [0, 1], STDE in
+    [0, 1], SED >= 0, all finite; MultiMatch in [0, 1] or NaN (NaN when
+    every rollout has fewer than 3 fixations)."""
+    for group, lo, hi, nan_ok in (("MultiMatch", 0, 1, True),
+                                  ("ScanMatch", 0, 1, False)):
+        for k, v in metrics[group].items():
+            if not (lo <= v <= hi or (nan_ok and math.isnan(v))):
+                raise AssertionError(f"{group}/{k} = {v}")
+    vame = metrics["VAME"]
+    if not all(math.isfinite(vame[k]) for k in vame) or \
+            not (0 <= vame["STDE"] <= 1 and vame["SED"] >= 0):
+        raise AssertionError(f"VAME {vame}")
+
+
+def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
+                   batch, specs):
+    """The test CLI with the device sweep at full width, float32 and
+    bfloat16; returns the launch counts of both runs.  ``batch`` and
+    ``specs`` are the split's first batch and the sweep's specs."""
+    print(f"[test] split: {TEST_IMAGES} images x {TEST_SUBJECTS} subjects, "
+          f"w/-duration table {specs[0].max_symbols} symbols, w/o-duration "
+          f"table {specs[1].max_symbols}", flush=True)
+    forwards = -(-TEST_IMAGES // TEST_BATCH)
+    want = {"cell_step": SEQ * forwards, "stage_apply": 3 * forwards,
+            "nw_scores_bins": 2 * forwards + 2 * REPEATS * forwards}
+    totals = dict.fromkeys(want, 0)
+    real_add = device_eval.DeviceSweep.add_batch
+    real_human = test_cli.human_evaluation_device
+    for half in ("false", "true"):
+        captured, sweep_secs = [], [0.0]
+
+        def add_batch(self, *a):
+            if len(captured) < 2:
+                captured.append([x.detach().clone() for x in a])
+            t = time.perf_counter()
+            real_add(self, *a)
+            sweep_secs[0] += time.perf_counter() - t
+
+        def human(*a, **kw):
+            t = time.perf_counter()
+            out = real_human(*a, **kw)
+            sweep_secs[0] += time.perf_counter() - t
+            return out
+
+        cell.cell_launches = block.block_launches = nw.nw_launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(device_eval.DeviceSweep, "add_batch",
+                               add_batch), \
+                mock.patch.object(test_cli, "human_evaluation_device",
+                                  human):
+            metrics = test_cli.main(argv + ["--half_precision", half])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {"cell_step": cell.cell_launches,
+               "stage_apply": block.block_launches,
+               "nw_scores_bins": nw.nw_launches}
+        if got != want:
+            raise AssertionError(f"test --half_precision {half}: launches "
+                                 f"{got}, expected {want}")
+        for k, v in got.items():
+            totals[k] += v
+        run_dir = argv[argv.index("--evaluation_dir") + 1]
+        with open(os.path.join(run_dir, "test_predicts.json")) as f:
+            records = json.load(f)
+        _check_records(records, TEST_IMAGES, REPEATS, 320, 240)
+        _check_tree(metrics)
+        print(f"[test] test --device_eval true --half_precision {half}: "
+              f"{len(records)} records, launches {got}, {secs:.2f} s wall, "
+              f"device sweep {sweep_secs[0]:.2f} s "
+              f"({100 * sweep_secs[0] / secs:.1f}%)", flush=True)
+        if half == "false":
+            compare_with_host(device_eval, heval, batch, specs, captured)
+    return totals
+
+
+def _phase(name, t0):
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s wall",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -354,7 +697,11 @@ def main():
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from scanpaths_tpu_torch.cli import predict
-    from scanpaths_tpu_torch.ops import _build, block, cell
+    from scanpaths_tpu_torch.cli import test as test_cli
+    from scanpaths_tpu_torch.metrics import device_eval
+    from scanpaths_tpu_torch.metrics import evaluation as heval
+    from scanpaths_tpu_torch.metrics import torch_metrics as tm
+    from scanpaths_tpu_torch.ops import _build, block, cell, nw
     from scanpaths_tpu_torch.serve import predictor
 
     t0 = time.perf_counter()
@@ -367,18 +714,42 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {line.strip()}", flush=True)
 
-    summary = check_kernels(cell, block)
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        test_argv = write_test_split(tmp)
+        batch, specs = _first_batch(test_argv)
+        _phase("data", t0)
+
+        t0 = time.perf_counter()
+        summary = check_kernels(cell, block)
+        summary["nw_scores_bins"] = check_nw(nw, tm, batch, specs)
+        _phase("kernels", t0)
+
+        t0 = time.perf_counter()
         launches = run_slice(cell, block, predict, tmp)
-    compare_forward(cell, block, predictor)
+        compare_forward(cell, block, predictor)
+        _phase("serving slice", t0)
+
+        t0 = time.perf_counter()
+        test_launches = run_test_slice(cell, block, nw, test_cli,
+                                       device_eval, heval, test_argv,
+                                       batch, specs)
+        _phase("test slice", t0)
+    launches["nw_scores_bins"] = 0
+    for k, v in test_launches.items():
+        launches[k] += v
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),
                "stage_apply": ("scanpaths_tpu_torch/csrc/block.cu",
-                               "scanpaths_tpu/ops/pallas_block.py:197")}
+                               "scanpaths_tpu/ops/pallas_block.py:197"),
+               "nw_scores_bins": ("scanpaths_tpu_torch/csrc/nw.cu",
+                                  "scanpaths_tpu/ops/pallas_nw.py:111")}
+    # no single PyTorch call computes any of the three functions (a
+    # fused ConvLSTM step, a stage of bottleneck blocks, an NW alignment)
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1], launches=launches[name],
-                    **summary[name]) for name in ("cell_step", "stage_apply")]
+                    library_ms=None, **summary[name]) for name in sources]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ PyTorch port (OSIE).
         [--device cuda] [--predict_out scanpaths.json]
 
 ``--device`` (default ``cuda``) is this CLI's own flag; every other flag
-is the JAX package's (``scanpaths_tpu.core.config.parse_opt``).  With
+is ``core/config.py::parse_opt``'s, the JAX package's CLI flags.  With
 ``--device cuda`` and no card the CLI raises: pass ``--device cpu`` to
 run on the CPU.  Images are served in chunks of ``--batch``, the tail
 chunk padded to the full batch.  Output records use the reference
@@ -25,9 +25,8 @@ import sys
 import numpy as np
 import torch
 
-from scanpaths_tpu.core.config import parse_opt
-from scanpaths_tpu.data.transforms import load_image
-
+from ..core.config import parse_opt
+from ..data.transforms import load_image
 from ..serve.predictor import Predictor
 
 

@@ -85,6 +85,58 @@ def load_reference_state_dict(sd: dict, task: str = "osie") -> dict:
     return out
 
 
+def to_reference_state_dict(sd: dict, map_h: int, map_w: int) -> dict:
+    """The port's ``ScanpathModel`` state dict -> the reference's torch
+    layout, the inverse of :func:`load_reference_state_dict` (the fused
+    gate convs split back per gate, the spatial scoring Linear back to
+    its (map_h, map_w) conv)."""
+    stage_child = {v: k for k, v in _STAGE_INDEX.items()}
+    out: dict[str, torch.Tensor] = {}
+    for key, v in sd.items():
+        if not key.startswith("backbone.") or \
+                key.endswith(".num_batches_tracked"):
+            continue
+        name, rest = key[len("backbone."):].split(".", 1)
+        if name == "conv1":
+            out[f"resnet.0.{rest}"] = v
+        elif name == "bn1":
+            out[f"resnet.1.{rest}"] = v
+        else:
+            stage, block = name[len("layer"):].split("_block")
+            rest = rest.replace("downsample_conv.", "downsample.0.") \
+                       .replace("downsample_bn.", "downsample.1.")
+            out[f"resnet.{stage_child[int(stage)]}.{block}.{rest}"] = v
+
+    def copy(src, dst):
+        out[f"{dst}.weight"] = sd[f"{src}.weight"]
+        out[f"{dst}.bias"] = sd[f"{src}.bias"]
+
+    def split(src, dsts):
+        for name, w, b in zip(dsts, sd[f"{src}.weight"].chunk(len(dsts)),
+                              sd[f"{src}.bias"].chunk(len(dsts))):
+            out[f"{name}.weight"], out[f"{name}.bias"] = w, b
+
+    copy("sal_conv", "sal_conv")
+    split("xgates.gates_x", [f"lstm.{g}_x" for g in GATES_XH])
+    split("lstm.gates_h", [f"lstm.{g}_h" for g in GATES_XH])
+    split("lstm.gates_s0", [f"lstm.{g}" for g in GATES_S])
+    copy("semantic_embed", "semantic_embed")
+    copy("spatial_embed", "spatial_embed")
+    copy("semantic_att.lists", "semantic_att.semantic_lists")
+    copy("semantic_att.cur", "semantic_att.semantic_cur")
+    copy("semantic_att.att", "semantic_att.semantic_attention")
+    copy("spatial_att.lists_conv", "spatial_att.spatial_lists")
+    copy("spatial_att.cur_conv", "spatial_att.spatial_cur")
+    copy("spatial_att.att", "spatial_att.spatial_attention")
+    out["spatial_att.spatial_attention.weight"] = \
+        out["spatial_att.spatial_attention.weight"].reshape(
+            1, 1, map_h, map_w)
+    copy("conditioner.sal_layer", "performance_sal_layer")
+    for name in _HEAD:
+        copy(f"head.{name}", f"object_head.{name}")
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
 def _flax_to_reference(params: dict, batch_stats: dict, map_h: int,
                        map_w: int) -> dict:
     """The JAX OSIE model's flax trees -> reference-layout numpy state

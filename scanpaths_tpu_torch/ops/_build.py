@@ -80,13 +80,13 @@ def library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def kernel(name: str, n_ptr: int, n_int: int):
-    """C entry point ``name(ptr * n_ptr, int * n_int, stream) -> int``
-    with its ctypes signature declared (pointers and the stream as
-    ``c_void_p``, so none is cut to 32 bits)."""
+def kernel(name: str, n_ptr: int, n_int: int, n_float: int = 0):
+    """C entry point ``name(ptr * n_ptr, int * n_int, float * n_float,
+    stream) -> int`` with its ctypes signature declared (pointers and
+    the stream as ``c_void_p``, so none is cut to 32 bits)."""
     fn = getattr(library(), name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from scanpaths_tpu.core.grid import FIX_DTYPE, GridSpec
+from ..core.grid import FIX_DTYPE, GridSpec
 
 
 class SampleOut(NamedTuple):

@@ -16,8 +16,7 @@ import sys
 import numpy as np
 import torch
 
-from scanpaths_tpu.core.grid import GridSpec
-
+from ..core.grid import GridSpec
 from ..models.port import load_reference_state_dict
 from ..models.scanpath_model import ScanpathModel, init_weights
 from ..ops.sampling import SampleOut, greedy_sample, random_sample
