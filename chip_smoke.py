@@ -13,17 +13,23 @@ Phases, each reporting on its own lines and with its wall time:
    800x600, 15 subjects each, 3-20 fixations of 100-800 ms) and a
    reference-layout checkpoint_best.pth of seed weights;
 4. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and ragged small ones: the cell and stage
-   kernels in float32 (TF32 off) and bfloat16 within a tolerance, the
-   NW kernel exactly (max abs error 0, NaN in the same places) on the
-   device sweep's human-baseline batch for both ScanMatch tables; prints
-   the max abs error, the times and the least time the card could take;
+   at the main path's shapes and at edge ones (pixel counts off the
+   128-pixel tile, column counts off the tile widths, dilation 2, two
+   signal streams): the cell and stage kernels in float32 (TF32 off) and
+   bfloat16 within a tolerance, the NW kernel exactly (max abs error 0,
+   NaN in the same places) on the device sweep's human-baseline batch
+   for both ScanMatch tables; prints the max abs error, the times, the
+   least time the card could take, the achieved TFLOP/s and share of
+   that bound, each launch's tiles and waves over the SMs, and beside the
+   cell, as a yardstick the port never calls, cuDNN's gate conv alone;
 5. serving slice: serves 12 images through scanpaths_tpu_torch.cli.predict
    at full width (ResNet-50, embed 512, 240x320, T=16, batch 8, weights
    from a seed), greedy and sampled, float32 and bfloat16; checks the
    records and that every forward launched the cell kernel 16 times and
    the stage kernel 3 times; then runs one forward through the kernels
-   and through the plain versions and compares them;
+   and through the plain versions, compares and times them (in float32
+   also each cell call of both against the plain version in float64),
+   and splits one forward's device time with torch.profiler;
 6. test slice: runs scanpaths_tpu_torch.cli.test --device_eval true at
    full width (batch 16, 10 repeats) over the synthetic split in
    float32 and bfloat16; checks the prediction records and the launch
@@ -176,17 +182,36 @@ def _stage_inputs(n, h, w, c, m, nb, dtype, gen):
                 b3=rnd(nb, c, std=0.1, dt=f32))
 
 
+def _rate(flops, ms, bound_ms):
+    """TFLOP/s achieved and the share of the bound reached."""
+    return f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of bound"
+
+
+def _waves(label, grid, sms):
+    """A launch's tiles and its waves over the card's SMs."""
+    gx, gy, per_sm = grid
+    tiles = gx * gy
+    return (f"{label} {tiles} tiles ({gx} x {gy}), {per_sm} per SM, "
+            f"{tiles / (sms * per_sm):.2f} waves")
+
+
 def check_kernels(cell, block):
     """The cell and stage kernels; returns {kernel: {"max_abs_err", "ms",
-    "plain_ms", "bound_ms", "bound_by"}} at the main path's shapes in
-    float32."""
+    "plain_ms", "bound_ms", "bound_by", "bf16_..."}} at the main path's
+    shapes (float32 keys unprefixed, bfloat16 ones prefixed)."""
+    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
-    summary = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    summary = {"cell_step": {}, "stage_apply": {}}
+    # pixel counts off the 128-pixel tile (ragged ones), both stream
+    # counts, and C % 64 != 0 (the narrower bf16 gate tile)
     cell_cases = [("main S=1", (BATCH, 30, 40, 512, 1)),
                   ("main S=2", (BATCH, 30, 40, 512, 2)),
-                  ("ragged", (3, 7, 9, 64, 1))]
+                  ("ragged", (3, 7, 9, 64, 1)),
+                  ("ragged S=2 C=96", (3, 5, 11, 96, 2))]
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         dname = str(dtype).split(".")[-1]
+        pre = "" if dtype == torch.float32 else "bf16_"
         for label, shape in cell_cases:
             a = _cell_inputs(*shape, dtype, gen)
             c_k, c_p = a["c"].clone(), a["c"].clone()
@@ -203,20 +228,46 @@ def check_kernels(cell, block):
                     lambda: cell.cell_step(a["h"], c_t, *args),
                     lambda: cell.cell_step_plain(a["h"], c_t, *args), 5)
                 bound_ms, bound_by = cell_bound(*shape, dtype)
+                n, h, w, c, _ = shape
+                flops = 2 * n * h * w * 9 * c * 4 * c
                 line += (f", {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-                         f"{bound_ms:.3f} ms by {bound_by})")
-                if label == "main S=1" and dtype == torch.float32:
-                    summary["cell_step"] = dict(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by)
+                         f"{bound_ms:.3f} ms by {bound_by}; gate conv "
+                         f"{_rate(flops, ms, bound_ms)}); "
+                         + _waves("grid", cell.cell_grid(n, h, w, c, dtype),
+                                  sms))
+                if label == "main S=1":
+                    summary["cell_step"].update({
+                        pre + "max_abs_err": err, pre + "ms": ms,
+                        pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
+                        pre + "bound_by": bound_by})
             print(line, flush=True)
 
+        # yardstick, not called by the port: cuDNN's gate conv alone at
+        # the cell's main shape, channels-last
+        n, h, w, c, _ = cell_cases[0][1]
+        x = torch.randn((n, c, h, w), generator=gen, device="cuda").to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        k = (torch.randn((4 * c, c, 3, 3), generator=gen, device="cuda")
+             / math.sqrt(9 * c)).to(dtype).contiguous(
+                 memory_format=torch.channels_last)
+        conv_ms, _ = _pair_ms(lambda: F.conv2d(x, k, padding=1),
+                              lambda: F.conv2d(x, k, padding=1), 5)
+        print(f"[kernels] yardstick: cuDNN gate conv alone (F.conv2d "
+              f"{n}x{c}x{h}x{w} -> {4 * c}, 3x3, channels-last, {dname}"
+              f"{', TF32 off' if dtype == torch.float32 else ''}): "
+              f"{conv_ms:.3f} ms", flush=True)
+
+    # column counts off every tile width (96, 32) with dilation 1 and 2,
+    # pixel counts off the 128-pixel tile
     stage_cases = [("layer1", (60, 80, 256, 64, 2, 1)),
                    ("layer2", (60, 80, 512, 128, 3, 1)),
                    ("layer3", (30, 40, 1024, 256, 5, 2)),
-                   ("ragged", (7, 9, 64, 32, 2, 2))]
+                   ("ragged", (7, 9, 64, 32, 2, 2)),
+                   ("edge C=96", (9, 13, 96, 32, 2, 1)),
+                   ("edge C=96 dil=2", (11, 10, 96, 32, 2, 2))]
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         dname = str(dtype).split(".")[-1]
+        pre = "" if dtype == torch.float32 else "bf16_"
         total = [0.0, 0.0, 0.0, 0.0]       # ms, plain ms, flops, bytes
         errs = []
         for label, (h, w, c, m, nb, dil) in stage_cases:
@@ -229,7 +280,7 @@ def check_kernels(cell, block):
             errs.append(err)
             line = (f"[kernels] stage {label} N=2 {h}x{w} C={c} M={m} "
                     f"B={nb} dil={dil} {dname}: max_abs_err {err:.3g}")
-            if label != "ragged":
+            if label.startswith("layer"):
                 # timed at the served batch
                 b = _stage_inputs(BATCH, h, w, c, m, nb, dtype, gen)
                 wb = (b["w1"], b["b1"], b["w2"], b["b2"], b["w3"], b["b3"])
@@ -239,17 +290,23 @@ def check_kernels(cell, block):
                 flops, nbytes = stage_work(BATCH, h, w, c, m, nb, dtype)
                 for i, v in enumerate((ms, plain_ms, flops, nbytes)):
                     total[i] += v
-                line += f", N={BATCH}: {ms:.3f} ms (plain {plain_ms:.3f} ms)"
+                bound_ms, _ = _bound(flops, nbytes, PEAK_FLOPS[dtype])
+                g = block.stage_grid(BATCH, h, w, c, m, dtype)
+                line += (f", N={BATCH}: {ms:.3f} ms (plain {plain_ms:.3f} ms; "
+                         f"{_rate(flops, ms, bound_ms)}); "
+                         + "; ".join(_waves(p, g[3 * i:3 * i + 3], sms)
+                                     for i, p in enumerate(
+                                         ("reduce", "3x3", "expand"))))
             print(line, flush=True)
         bound_ms, bound_by = _bound(total[2], total[3], PEAK_FLOPS[dtype])
         print(f"[kernels] stage layers 1-3 N={BATCH} {dname}: "
               f"{total[0]:.3f} ms (plain {total[1]:.3f} ms, bound "
-              f"{bound_ms:.3f} ms by {bound_by}, {total[2] / 1e9:.1f} GFLOP)",
-              flush=True)
-        if dtype == torch.float32:
-            summary["stage_apply"] = dict(
-                max_abs_err=max(errs[:3]), ms=total[0], plain_ms=total[1],
-                bound_ms=bound_ms, bound_by=bound_by)
+              f"{bound_ms:.3f} ms by {bound_by}, {total[2] / 1e9:.1f} GFLOP; "
+              f"{_rate(total[2], total[0], bound_ms)})", flush=True)
+        summary["stage_apply"].update({
+            pre + "max_abs_err": max(errs), pre + "ms": total[0],
+            pre + "plain_ms": total[1], pre + "bound_ms": bound_ms,
+            pre + "bound_by": bound_by})
     return summary
 
 
@@ -330,6 +387,49 @@ def run_slice(cell, block, predict, tmp):
 COMPARE_SCALE = 0.1
 
 
+def profile_forward(fn, label):
+    """One call of fn() under torch.profiler after a warm-up: the device
+    busy time (the kernels' and copies' sum on the one stream), the span
+    between CUDA events around the call, the idle share, the cell
+    kernel's share of the busy time, and the five largest kernels.  The
+    profiler adds host time, so the span is longer than an unprofiled
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    times = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        times[evt.key] = times.get(evt.key, 0.0) + us / 1e3
+    busy = sum(times.values())
+    if busy == 0.0:
+        print(f"[profile] forward {label}: the trace holds no device time",
+              flush=True)
+        return
+    cell_ms = sum(v for k, v in times.items() if "cell_" in k)
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[profile] forward {label}: device busy {busy:.2f} ms of a "
+          f"{span:.2f} ms span ({100 * (1 - busy / span):.1f}% idle); cell "
+          f"kernel {cell_ms:.2f} ms ({100 * cell_ms / busy:.1f}% of busy); "
+          "largest: " + "; ".join(f"{k[:60]} {v:.2f} ms "
+                                  f"({100 * v / busy:.1f}%)" for k, v in top),
+          flush=True)
+
+
 def compare_forward(cell, block, predictor_mod):
     """Full-width forwards through the kernels and the plain versions on
     the same weights and images: every kernel call of the served
@@ -349,15 +449,27 @@ def compare_forward(cell, block, predictor_mod):
                           "--half_precision", half])
         pred = predictor_mod.Predictor(args, "cuda")
         errs = {"cell_step": [], "stage_apply": []}
+        # float32 only: the kernel's and the plain version's errors against
+        # the plain version in float64 on the same inputs, per call
+        f64_errs = {"kernel": [], "plain": []}
         cell_k, stage_k = cell.cell_step, block.stage_apply
 
         def checked_cell(h, c, *a):
             c_p = c.clone()
+            c_d = c.double() if half == "false" else None
             h_k, c_k = cell_k(h, c, *a)
             h_p, c_p = cell.cell_step_plain(h, c_p, *a)
             errs["cell_step"].append(max(
                 _close("cell in forward", h_k, h_p, tol, scaled=True),
                 _close("cell in forward", c_k, c_p, tol, scaled=True)))
+            if c_d is not None:
+                h_d, c_d = cell.cell_step_plain(h.double(), c_d,
+                                                *(t.double() for t in a))
+                for side, (hh, cc) in (("kernel", (h_k, c_k)),
+                                       ("plain", (h_p, c_p))):
+                    f64_errs[side].append(max(
+                        float((hh.double() - h_d).abs().max()),
+                        float((cc.double() - c_d).abs().max())))
             return h_k, c_k
 
         def checked_stage(x, dil, *w):
@@ -375,6 +487,13 @@ def compare_forward(cell, block, predictor_mod):
               f"against its plain version on the same inputs: "
               + ", ".join(f"{k} {len(v)} calls, max abs err {max(v):.3g}"
                           for k, v in errs.items()), flush=True)
+        if half == "false":
+            print("[slice] forward half=false: cell_step max abs err against "
+                  "its plain version in float64, calls 1 and 16 (largest): "
+                  + ", ".join(f"{side} {v[0]:.3g} and {v[-1]:.3g} "
+                              f"({max(v):.3g})" for side, v in f64_errs.items())
+                  + " (plain = cuDNN's float32 conv without TF32)",
+                  flush=True)
 
         def kern(x=images):
             return pred.forward(x)
@@ -396,6 +515,7 @@ def compare_forward(cell, block, predictor_mod):
                 _close(f"forward {k} at scale {COMPARE_SCALE}", out_k[k],
                        out_p[k], F32_TOL, scaled=True)
         ms, plain_ms = _pair_ms(kern, ref, 3)
+        profile_forward(kern, f"N={BATCH} half={half}")
         print(f"[slice] forward N={BATCH} 240x320 T={SEQ} half={half}: "
               f"{ms:.2f} ms with kernels, {plain_ms:.2f} ms plain; "
               f"outputs max abs err at input scale {COMPARE_SCALE}"
@@ -679,6 +799,27 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
     return totals
 
 
+def print_ptxas(log):
+    """One line per compiled kernel from ptxas -v: its name with template
+    arguments, registers, spills and shared memory."""
+    import re
+    name, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(cell_f32|cell_bf16|conv_f32|conv_bf16|nw_kernel)"
+                          r"((?:I?Li-?\d+E)*)", m.group(1))
+            name = m.group(1) if not k else k.group(1) + (
+                "<" + ",".join(re.findall(r"Li(-?\d+)E", k.group(2))) + ">"
+                if k.group(2) else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}",
+                  flush=True)
+            name = None
+
+
 def _phase(name, t0):
     print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s wall",
           flush=True)
@@ -710,9 +851,7 @@ def main():
     print(f"[build] {_build.library_path().name} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}", flush=True)
+        print_ptxas(log.read_text())
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources into one shared library and bind it.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with :mod:`ctypes`.  The library lands in
+(``sm_90a``), one ``nvcc`` process per file, all started together, and
+the objects are linked into one shared library with a plain C interface,
+which is loaded with :mod:`ctypes`.  The library lands in
 ``build/scanpaths_tpu_torch/`` at the root of the checkout, named by a
 hash of the sources and flags, so an unchanged tree builds once.  The
 build runs at first use: the first kernel launch (or an explicit
@@ -26,7 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[2] / "build" / \
     "scanpaths_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -65,16 +66,31 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         nvcc = find_nvcc()
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        stem = out.with_name(f"{out.stem}.{os.getpid()}")
+        objs = [stem.with_name(f"{stem.name}.{src.stem}.o")
+                for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                 str(src)] for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = stem.with_name(f"{stem.name}.tmp.so")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(proc.returncode == 0 for proc in procs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            cmds.append(link)
+            procs.append(proc)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}:\n"
+                    f"{' '.join(cmd)}\n{log}")
         # ptxas -v: registers, shared memory and spills per kernel
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        out.with_suffix(".log").write_text("".join(logs))
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
 
@@ -99,3 +115,27 @@ def check(name: str, err: int) -> None:
         msg_fn.restype = ctypes.c_char_p
         raise RuntimeError(
             f"{name} failed: CUDA error {err} ({msg_fn(err).decode()})")
+
+
+def packed(t, pack):
+    """``pack(t)``, the layout a kernel reads a weight in, computed once
+    per tensor and kept on it until the tensor is changed in place (its
+    version counter moves), so a weight passed to many launches is
+    re-laid out once."""
+    hit = getattr(t, "_sp_packed", None)
+    if hit is not None and hit[0] is pack and hit[1] == t._version:
+        return hit[2]
+    out = pack(t)
+    t._sp_packed = (pack, t._version, out)
+    return out
+
+
+def grid_report(name: str, n_out: int, *args: int) -> list[int]:
+    """What C entry point ``name(int *out, int...)`` reports of a
+    launch: grid sizes and blocks per SM, ``n_out`` ints."""
+    fn = getattr(library(), name)
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * n_out)()
+    check(name, fn(ctypes.addressof(out), *args))
+    return list(out)

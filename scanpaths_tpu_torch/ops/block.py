@@ -112,6 +112,11 @@ def stage_apply_plain(x, dil: int, w1, b1, w2, b2, w3, b3):
     return x
 
 
+def _k_contiguous(w):
+    """[B, K, N] -> [B, N, K], contiguous."""
+    return w.transpose(1, 2).contiguous()
+
+
 def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
     """Run a stack of uniform bottleneck blocks on a dense NHWC input.
 
@@ -119,7 +124,9 @@ def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
     Returns the stage output [N, H, W, C].  A CPU tensor runs
     :func:`stage_apply_plain`; a CUDA tensor runs ``csrc/block.cu``
     (C % 32 == 0, M % 32 == 0, contiguous and 16-byte aligned) or
-    raises.
+    raises.  The kernel reads the weights transposed (K contiguous): the
+    wrapper transposes each weight tensor once and keeps the result on
+    it.
     """
     global block_launches
     if x.device.type == "cpu":
@@ -136,6 +143,9 @@ def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
                for t in (x, w1, b1, w2, b2, w3, b3)):
         raise ValueError("the stage kernel needs contiguous, 16-byte "
                          "aligned tensors")
+    # the kernel reads the weights K-contiguous: [B, M, C], [B, M, 9M],
+    # [B, C, M]
+    w1, w2, w3 = (_build.packed(t, _k_contiguous) for t in (w1, w2, w3))
     t1 = torch.empty((n, h, w, m), dtype=x.dtype, device=x.device)
     t2 = torch.empty_like(t1)
     bufs = (torch.empty_like(x), torch.empty_like(x))
@@ -154,3 +164,11 @@ def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
             src = dst
     block_launches += 1
     return src
+
+
+def stage_grid(n: int, h: int, w: int, c: int, m: int, dtype) -> list[int]:
+    """[grid x, grid y, blocks per SM] of each of a block's three CUDA
+    launches (reduce, 3x3, expand), flattened, at this shape (needs the
+    card)."""
+    return _build.grid_report("sp_bottleneck_grid", 9, n, h, w, c, m,
+                              _DTYPES[dtype])

@@ -15,7 +15,10 @@ the TPU kernel's flat padded-row layout is not carried over.
 :func:`cell_step` runs the hand-written CUDA kernel (``csrc/cell.cu``)
 on CUDA tensors and :func:`cell_step_plain`, the same computation in
 plain PyTorch ops, on CPU tensors.  Both update ``c`` in place and
-return the new hidden state in a separate tensor.
+return the new hidden state in a separate tensor.  The kernel reads the
+gate kernel packed K-contiguous (:func:`pack_gate_kernel`); the wrapper
+packs each ``kh`` tensor once and keeps the packed form on it, so the 16
+steps of a forward, which share one ``kh``, pack it once.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ from . import _build
 cell_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the plain version also runs in float64, as a reference for the others
+_PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
-def _check(h, c, xg, smaps, kps, kh):
+def _check(h, c, xg, smaps, kps, kh, dtypes=tuple(_DTYPES)):
     if h.dim() != 4:
         raise ValueError(f"h must be [N, H, W, C], got {tuple(h.shape)}")
     n, hh, ww, ch = h.shape
@@ -50,13 +55,27 @@ def _check(h, c, xg, smaps, kps, kh):
             raise ValueError(f"{name} is {t.dtype}, h is {h.dtype}")
         if t.device != h.device:
             raise ValueError(f"{name} is on {t.device}, h is on {h.device}")
-    if h.dtype not in _DTYPES:
-        raise ValueError(f"dtype {h.dtype} not supported (float32, bfloat16)")
+    if h.dtype not in dtypes:
+        raise ValueError(f"dtype {h.dtype} not supported "
+                         f"({', '.join(str(d)[6:] for d in dtypes)})")
+
+
+def pack_gate_kernel(kh):
+    """The HWIO gate kernel [3, 3, C, 4C] as the kernel reads it:
+    [4C, 9C], row g*C + c holding output column g*C + c over the taps
+    and input channels, tap-major (K contiguous)."""
+    return kh.reshape(-1, kh.shape[-1]).t().contiguous()
+
+
+def unpack_gate_kernel(kt):
+    """The inverse of :func:`pack_gate_kernel`: [4C, 9C] -> [3, 3, C, 4C]."""
+    return kt.t().reshape(3, 3, kt.shape[0] // 4, kt.shape[0]).contiguous()
 
 
 def cell_step_plain(h, c, xg, smaps, kps, kh):
-    """Plain PyTorch version of :func:`cell_step` (same arguments)."""
-    _check(h, c, xg, smaps, kps, kh)
+    """Plain PyTorch version of :func:`cell_step` (same arguments; also
+    in float64)."""
+    _check(h, c, xg, smaps, kps, kh, _PLAIN_DTYPES)
     n, hh, ww, ch = h.shape
     acc = F.conv2d(h.permute(0, 3, 1, 2), kh.permute(3, 2, 0, 1),
                    padding=1).permute(0, 2, 3, 1).float()
@@ -90,15 +109,15 @@ def cell_step(h, c, xg, smaps, kps, kh):
     raises.
     """
     global cell_launches
+    _check(h, c, xg, smaps, kps, kh)
     if h.device.type == "cpu":
         return cell_step_plain(h, c, xg, smaps, kps, kh)
-    _check(h, c, xg, smaps, kps, kh)
     if h.device.type != "cuda":
         raise ValueError(f"no cell kernel for device {h.device}")
     n, hh, ww, ch = h.shape
     if ch % 32:
         raise ValueError(f"the cell kernel needs C % 32 == 0, got C={ch}")
-    ts = (h, c, xg, smaps, kps, kh)
+    ts = (h, c, xg, smaps, kps, _build.packed(kh, pack_gate_kernel))
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
         raise ValueError("the cell kernel needs contiguous, 16-byte "
                          "aligned tensors")
@@ -111,3 +130,10 @@ def cell_step(h, c, xg, smaps, kps, kh):
     _build.check("sp_cell_step", err)
     cell_launches += 1
     return h_out, c
+
+
+def cell_grid(n: int, hh: int, ww: int, ch: int, dtype) -> list[int]:
+    """[grid x, grid y, blocks per SM] of the CUDA kernel at this shape
+    (needs the card)."""
+    return _build.grid_report("sp_cell_grid", 3, n, hh, ww, ch,
+                              _DTYPES[dtype])

@@ -158,20 +158,26 @@ def test_stage_apply_on_cpu_runs_the_plain_version_and_checks_shapes():
 
 
 @pytest.mark.gpu
-def test_stage_kernel_matches_plain_on_the_card():
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_stage_kernel_matches_plain_on_the_card(dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(3)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
-    x = t(np.maximum(rng.standard_normal((2, 7, 9, 64)), 0))
-    w = dict(w1=t(rng.standard_normal((2, 64, 32)) * 0.1),
-             b1=t(rng.standard_normal((2, 32)) * 0.1),
-             w2=t(rng.standard_normal((2, 288, 32)) * 0.05),
-             b2=t(rng.standard_normal((2, 32)) * 0.1),
-             w3=t(rng.standard_normal((2, 32, 64)) * 0.1),
-             b3=t(rng.standard_normal((2, 64)) * 0.1))
-    torch.testing.assert_close(block.stage_apply(x, 2, **w),
-                               block.stage_apply_plain(x, 2, **w),
-                               atol=1e-4, rtol=1e-4)
+    # pixel counts off the 128-pixel tile, column counts off every tile
+    # width (96, 32), dilation 1 and 2
+    for (n, h, w, c, m, dil) in ((2, 7, 9, 64, 32, 2), (1, 9, 13, 96, 32, 1),
+                                 (1, 11, 10, 96, 32, 2)):
+        x = t(np.maximum(rng.standard_normal((n, h, w, c)), 0)).to(dtype)
+        ws = dict(w1=t(rng.standard_normal((2, c, m)) * 0.1).to(dtype),
+                  b1=t(rng.standard_normal((2, m)) * 0.1),
+                  w2=t(rng.standard_normal((2, 9 * m, m)) * 0.05).to(dtype),
+                  b2=t(rng.standard_normal((2, m)) * 0.1),
+                  w3=t(rng.standard_normal((2, m, c)) * 0.1).to(dtype),
+                  b3=t(rng.standard_normal((2, c)) * 0.1))
+        torch.testing.assert_close(block.stage_apply(x, dil, **ws),
+                                   block.stage_apply_plain(x, dil, **ws),
+                                   atol=tol, rtol=tol)

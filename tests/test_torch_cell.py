@@ -18,7 +18,7 @@ import torch
 from scanpaths_tpu.models.components import FusedConvLSTMCell as FlaxCell
 from scanpaths_tpu.ops import pallas_cell as pc
 from scanpaths_tpu_torch.models.components import FusedConvLSTMCell
-from scanpaths_tpu_torch.ops import cell
+from scanpaths_tpu_torch.ops import _build, cell
 
 ATOL, RTOL = 5e-6, 1e-5
 
@@ -134,18 +134,84 @@ def test_fused_cell_matches_flax_cell():
                                rtol=RTOL)
 
 
+def test_pack_gate_kernel_roundtrip_and_layout():
+    """The kernel's packed gate kernel: unpack(pack(kh)) is kh, row
+    g*C + c of the packed form is output column g*C + c tap-major, and
+    the plain step fed the unpacked kernel still matches the Pallas
+    step."""
+    n, h, w, c, s = 2, 4, 5, 32, 1
+    a = _inputs(np.random.default_rng(5), n, h, w, c, s)
+    kh = torch.from_numpy(a["kh"])
+    kt = cell.pack_gate_kernel(kh)
+    assert tuple(kt.shape) == (4 * c, 9 * c) and kt.is_contiguous()
+    assert torch.equal(cell.unpack_gate_kernel(kt), kh)
+    for col in (0, c + 3, 4 * c - 1):
+        assert torch.equal(kt[col], kh[..., col].reshape(-1))
+    hn_ref, cn_ref = _pallas(a, h, w)
+    t = torch.from_numpy
+    hn, cn = cell.cell_step_plain(
+        t(a["h"]), t(a["c"].copy()), t(a["xg"]), t(np.stack(a["smaps"], -1)),
+        t(np.stack(a["kps"], 1)), cell.unpack_gate_kernel(kt))
+    np.testing.assert_allclose(hn.numpy(), hn_ref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(cn.numpy(), cn_ref, atol=ATOL, rtol=RTOL)
+
+
+def test_packed_layout_is_kept_until_the_weight_changes():
+    """The wrappers pack a weight once per tensor: the same tensor gives
+    the same packed object, and an in-place change packs it anew."""
+    kh = torch.from_numpy(
+        np.random.default_rng(6).standard_normal((3, 3, 32, 128))
+        .astype(np.float32))
+    kt = _build.packed(kh, cell.pack_gate_kernel)
+    assert _build.packed(kh, cell.pack_gate_kernel) is kt
+    assert torch.equal(kt, cell.pack_gate_kernel(kh))
+    kh.mul_(2.0)
+    kt2 = _build.packed(kh, cell.pack_gate_kernel)
+    assert kt2 is not kt and torch.equal(kt2, cell.pack_gate_kernel(kh))
+    other = _build.packed(kh, lambda t: t.reshape(-1))
+    assert other.shape == (3 * 3 * 32 * 128,)
+
+
+def test_plain_step_runs_in_float64_and_the_kernel_path_refuses_it():
+    """The plain step is also a float64 reference (the smoke holds the
+    kernel and cuDNN to it on the card); cell_step takes float32 and
+    bfloat16 only."""
+    n, h, w, c, s = 1, 3, 4, 32, 2
+    a = _inputs(np.random.default_rng(7), n, h, w, c, s)
+    args = [a["h"], a["c"], a["xg"], np.stack(a["smaps"], -1),
+            np.stack(a["kps"], 1), a["kh"]]
+    h32, c32 = cell.cell_step_plain(*(torch.from_numpy(x.copy())
+                                      for x in args))
+    h64, c64 = cell.cell_step_plain(*(torch.from_numpy(x.astype(np.float64))
+                                      for x in args))
+    assert h64.dtype == torch.float64 and c64.dtype == torch.float64
+    np.testing.assert_allclose(h32.numpy(), h64.numpy(), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(c32.numpy(), c64.numpy(), atol=ATOL, rtol=RTOL)
+    with pytest.raises(ValueError, match="not supported"):
+        cell.cell_step(*(torch.from_numpy(x.astype(np.float64))
+                         for x in args))
+
+
+# kernel edge cases: pixel counts off the 128-pixel tile, both signal
+# stream counts, and C % 64 != 0 (the narrower bf16 gate tile)
+GPU_CASES = [(2, 7, 9, 64, 1), (2, 7, 9, 64, 2), (3, 5, 11, 96, 2),
+             (1, 30, 40, 128, 1)]
+
+
 @pytest.mark.gpu
-def test_cell_kernel_matches_plain_on_the_card():
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cell_kernel_matches_plain_on_the_card(dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(4)
-    for s in (1, 2):
-        a = _inputs(rng, 2, 7, 9, 64, s)
-        t = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    for n, h, w, c, s in GPU_CASES:
+        a = _inputs(rng, n, h, w, c, s)
+        t = lambda x: torch.from_numpy(x).cuda().to(dtype)  # noqa: E731
         args = (t(a["xg"]), t(np.stack(a["smaps"], -1)),
                 t(np.stack(a["kps"], 1)), t(a["kh"]))
-        torch.backends.cudnn.allow_tf32 = False
         h1, c1 = cell.cell_step(t(a["h"]), t(a["c"].copy()), *args)
         h2, c2 = cell.cell_step_plain(t(a["h"]), t(a["c"].copy()), *args)
-        torch.testing.assert_close(h1, h2, atol=1e-4, rtol=1e-4)
-        torch.testing.assert_close(c1, c2, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(h1, h2, atol=tol, rtol=tol)
+        torch.testing.assert_close(c1, c2, atol=tol, rtol=tol)
