@@ -17,11 +17,15 @@ Phases, each reporting on its own lines and with its wall time:
    128-pixel tile, column counts off the tile widths, dilation 2, two
    signal streams): the cell and stage kernels in float32 (TF32 off) and
    bfloat16 within a tolerance, the NW kernel exactly (max abs error 0,
-   NaN in the same places) on the device sweep's human-baseline batch
-   for both ScanMatch tables; prints the max abs error, the times, the
-   least time the card could take, the achieved TFLOP/s and share of
-   that bound, each launch's tiles and waves over the SMs, and beside the
-   cell, as a yardstick the port never calls, cuDNN's gate conv alone;
+   NaN in the same places) at every shape the test driver launches it
+   (the human baseline, 3600 pairs, and a pair_rows batch, 240 pairs,
+   each for both ScanMatch tables) and at ragged ones (out-of-table
+   symbols among them); prints the max abs error, the times (for NW
+   also the kernel's device time, the wrapper's host time and the NW ms
+   per test run), the least time the card could take, the achieved
+   TFLOP/s and share of that bound, each launch's tiles and waves over
+   the SMs, and beside the cell, as a yardstick the port never calls,
+   cuDNN's gate conv alone;
 5. serving slice: serves 12 images through scanpaths_tpu_torch.cli.predict
    at full width (ResNet-50, embed 512, 240x320, T=16, batch 8, weights
    from a seed), greedy and sampled, float32 and bfloat16; checks the
@@ -143,16 +147,18 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _pair_ms(kernel_fn, plain_fn, iters):
+def _pair_ms(kernel_fn, plain_fn, iters, plain_iters=None):
     """Kernel and plain times in turns (plain, kernel, kernel, plain),
-    after one warm-up call each."""
+    after one warm-up call each; ``iters`` launches a side for the
+    kernel, ``plain_iters`` (default ``iters``) for the plain version."""
+    plain_iters = plain_iters or iters
     kernel_fn()
     plain_fn()
     torch.cuda.synchronize()
-    p1 = _time_ms(plain_fn, iters)
+    p1 = _time_ms(plain_fn, plain_iters)
     k1 = _time_ms(kernel_fn, iters)
     k2 = _time_ms(kernel_fn, iters)
-    p2 = _time_ms(plain_fn, iters)
+    p2 = _time_ms(plain_fn, plain_iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -598,22 +604,84 @@ def _exact(name, got, want):
     return err
 
 
-def check_nw(nw, tm, batch, specs):
-    """The NW kernel against its plain version, exactly: on the human
-    baseline batch of the device sweep (every ordered subject pair of
-    the first batch) for both ScanMatch tables, and on ragged cases.
-    Returns the summary at the w/-duration shape."""
+def _device_and_host_ms(fn, kernel, iters):
+    """(device ms, host ms) per call of fn over ``iters`` calls each:
+    the mean time of the kernels whose name holds ``kernel`` in a
+    torch.profiler trace (None if the trace holds none), and, in a run
+    without the profiler, the host clock over the calls before the
+    closing synchronize (the enqueue cost).  A call takes at least the
+    larger of the two."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if t is None else t
+            n += evt.count
+    return (us / n / 1e3 if n else None), 1e3 * host
+
+
+def seeded_rollouts(n):
+    """A rollout batch of the test driver's shape from seed 2: n
+    scanpaths of 1-SEQ fixations on the 320x240 frame, durations of
+    0.1-2 s capped at PRED_DURATION_CAP (as compare_with_host caps the
+    seed model's), so most fill 8 symbols of the w/-duration table."""
+    rng = np.random.default_rng(2)
+    fix = np.stack([rng.uniform(0, 320, (n, SEQ)),
+                    rng.uniform(0, 240, (n, SEQ)),
+                    np.minimum(rng.uniform(0.1, 2.0, (n, SEQ)),
+                               PRED_DURATION_CAP)], -1).astype(np.float32)
+    return (torch.as_tensor(fix, device="cuda"),
+            torch.as_tensor(rng.integers(1, SEQ + 1, n), dtype=torch.int32,
+                            device="cuda"))
+
+
+def nw_shapes(tm, batch, specs):
+    """Every NW launch shape of one test-driver run, from the split's
+    first batch: [(label, launches per run, spec, (fix_a, len_a, fix_b,
+    len_b))].  Per spec, the human baseline (every ordered subject pair,
+    ``device_eval.human_rows``) runs once per batch and ``pair_rows``
+    (GT subjects against a rollout batch) once per repeat per batch."""
     gt_fix = torch.as_tensor(batch["gt_fix"], device="cuda")
     gt_len = torch.as_tensor(batch["gt_len"], device="cuda")
     n, s, length = gt_fix.shape[:3]
-    fa = gt_fix[:, :, None].expand(n, s, s, length, 3).reshape(-1, length, 3)
-    fb = gt_fix[:, None].expand(n, s, s, length, 3).reshape(-1, length, 3)
-    la = gt_len[:, :, None].expand(n, s, s).reshape(-1)
-    lb = gt_len[:, None].expand(n, s, s).reshape(-1)
-    summary = None
-    for label, spec in zip(("w/ duration", "w/o duration"), specs):
-        sa, na = tm.quantize(spec, fa, la)
-        sb, nb = tm.quantize(spec, fb, lb)
+    pairs = (n, s, s, length, 3)
+    human = (gt_fix[:, :, None].expand(pairs).reshape(-1, length, 3),
+             gt_len[:, :, None].expand(n, s, s).reshape(-1),
+             gt_fix[:, None].expand(pairs).reshape(-1, length, 3),
+             gt_len[:, None].expand(n, s, s).reshape(-1))
+    pred_fix, pred_len = seeded_rollouts(n)
+    rows = (gt_fix.reshape(n * s, length, 3), gt_len.reshape(n * s),
+            torch.repeat_interleave(pred_fix, s, dim=0),
+            torch.repeat_interleave(pred_len, s, dim=0))
+    forwards = -(-TEST_IMAGES // TEST_BATCH)
+    return [(f"{part} {label}", runs, spec, pairs)
+            for part, runs, pairs in (("human baseline", forwards, human),
+                                      ("pair_rows", REPEATS * forwards, rows))
+            for label, spec in zip(("w/ duration", "w/o duration"), specs)]
+
+
+def check_nw(nw, tm, batch, specs):
+    """The NW kernel against its plain version, exactly, and timed at
+    every shape the test driver launches it (``nw_shapes``), then on
+    ragged cases.  Prints the NW ms per test run (the launches of one
+    run times their ms, summed over shapes).  Returns the summary at the
+    human baseline's w/-duration shape, with the per-run ms added."""
+    summary, per_run = None, 0.0
+    for label, runs, spec, pairs in nw_shapes(tm, batch, specs):
+        sa, na = tm.quantize(spec, *pairs[:2])
+        sb, nb = tm.quantize(spec, *pairs[2:])
         args = (spec.threshold, spec.xbin, spec.ybin, sa.contiguous(),
                 na.contiguous(), sb.contiguous(), nb.contiguous())
         got = nw.nw_scores_bins(*args)
@@ -621,38 +689,59 @@ def check_nw(nw, tm, batch, specs):
         torch.cuda.synchronize()
         err = _exact(f"nw {label}", got, want)
         ms, plain_ms = _pair_ms(lambda: nw.nw_scores_bins(*args),
-                                lambda: nw.nw_scores_bins_plain(*args), 3)
+                                lambda: nw.nw_scores_bins_plain(*args), 200, 3)
+        per_run += runs * ms
+        dev_ms, host_ms = _device_and_host_ms(
+            lambda: nw.nw_scores_bins(*args), "nw_kernel", 200)
         b, ta = sa.shape
         tb = sb.shape[1]
         cells = int((na.clamp(0, ta).long() * nb.clamp(0, tb).long()).sum())
         bound_ms, bound_by = _bound(NW_OPS_PER_CELL * cells,
                                     4 * (b * (ta + tb) + 3 * b),
                                     PEAK_FLOPS[torch.float32])
-        print(f"[kernels] nw {label} human baseline B={b} Ta=Tb={ta}: "
-              f"max_abs_err {err}, NaN {int(torch.isnan(got).sum())}, "
-              f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
-              f"ms by {bound_by}: {cells} DP cells; the longest row chain "
-              f"is {int(na.max())} rows)", flush=True)
+        print(f"[kernels] nw {label} B={b} Ta={ta} Tb={tb}: max_abs_err "
+              f"{err}, NaN {int(torch.isnan(got).sum())}, {ms:.4f} ms a "
+              f"call (kernel on the device "
+              + ("not in the trace" if dev_ms is None else f"{dev_ms:.4f} ms")
+              + f", host {host_ms:.4f} ms; plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.5f} ms by "
+              f"{bound_by}, {100 * bound_ms / ms:.1f}% of bound: {cells} DP "
+              f"cells; the longest row chain is {int(na.max())} rows); "
+              f"{runs} launches per test run", flush=True)
         if summary is None:
             summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] nw ms per test run: {per_run:.4f} ms", flush=True)
+    summary["ms_per_test_run"] = per_run
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for b, ta, tb in ((64, 37, 300), (48, 5, 1000), (40, 256, 256)):
-        def ints(hi, *shape):
-            return torch.randint(0, hi, shape, generator=gen, device="cuda",
-                                 dtype=torch.int32)
-        sa, sb = ints(192, b, ta), ints(192, b, tb)
-        na, nb = ints(ta + 1, b), ints(tb + 1, b)
+    # ragged lengths and widths; the pair_rows batch size; a w/o-duration
+    # width; symbols at and beyond the 16 x 12 bins (and negative ones),
+    # at each of the kernel's widths; 40 x 30 bins, whose scores are not
+    # tabled
+    for bins, b, ta, tb, lo, hi in (
+            ((16, 12), 64, 37, 300, 0, 192), ((16, 12), 48, 5, 1000, 0, 192),
+            ((16, 12), 40, 256, 256, 0, 192), ((16, 12), 240, 256, 256, 0, 192),
+            ((16, 12), 300, 20, 20, 0, 192), ((16, 12), 96, 40, 33, 150, 260),
+            ((16, 12), 64, 20, 20, -2 ** 31, 2 ** 31 - 1),
+            ((16, 12), 32, 10, 700, -5, 400), ((40, 30), 64, 50, 90, 0, 1200)):
+        def ints(lo, hi, *shape):
+            return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                                 dtype=torch.int64).to(torch.int32)
+        sa, sb = ints(lo, hi, b, ta), ints(lo, hi, b, tb)
+        na, nb = ints(0, ta + 1, b), ints(0, tb + 1, b)
         na[:4], nb[2:6] = 0, 0          # empty, one-sided and both empty
         na[6:9], nb[7:10] = ta, tb      # lengths at the bound
-        args = (3.5, 16, 12, sa, na, sb, nb)
+        na[10], nb[11] = -3, tb + 5     # clamped lengths
+        args = (3.5, *bins, sa, na, sb, nb)
         got = nw.nw_scores_bins(*args)
         want = nw.nw_scores_bins_plain(*args)
         torch.cuda.synchronize()
-        err = _exact(f"nw ragged B={b} Ta={ta} Tb={tb}", got, want)
-        print(f"[kernels] nw ragged B={b} Ta={ta} Tb={tb}: max_abs_err {err}, "
-              f"NaN {int(torch.isnan(got).sum())} (plain "
+        label = (f"{bins[0]}x{bins[1]} bins B={b} Ta={ta} Tb={tb} symbols "
+                 f"in [{lo}, {hi})")
+        err = _exact(f"nw ragged {label}", got, want)
+        print(f"[kernels] nw ragged {label}: max_abs_err {err}, NaN "
+              f"{int(torch.isnan(got).sum())} (plain "
               f"{int(torch.isnan(want).sum())})", flush=True)
     return summary
 

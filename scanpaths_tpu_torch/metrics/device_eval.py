@@ -81,12 +81,12 @@ def _gt_tensors(batch, device):
 
 def human_evaluation_device(loader, spec_wd: tm.ScanMatchSpec,
                             spec_wod: tm.ScanMatchSpec, task: str = "osie",
-                            device="cpu"):
+                            device="cuda"):
     """Device human inter-observer baseline — the drop-in replacement
     for ``evaluation.human_evaluation`` under ``--device_eval`` (same
     (metrics, stds, per_image) return tree, aggregation shared with the
     host suite).  Batches are host (numpy) batches; their GT goes to
-    ``device``."""
+    ``device``, the card unless the caller asks for the CPU."""
     if task == "air":
         return _human_evaluation_air_device(loader, spec_wd, spec_wod,
                                             device)

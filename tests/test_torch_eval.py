@@ -132,7 +132,8 @@ def test_device_sweep_and_human_baseline_match_jax(rng):
              "gt_fix": gt_fix, "gt_len": gt_len, "gt_mask": gt_mask}
     want_m, want_s, want_img = jdev.human_evaluation_device(
         [batch], jwd, jwod)
-    got_m, got_s, got_img = tdev.human_evaluation_device([batch], twd, twod)
+    got_m, got_s, got_img = tdev.human_evaluation_device([batch], twd, twod,
+                                                         device="cpu")
     _assert_tree(want_m, got_m)
     _assert_tree(want_s, got_s)
     for k in want_img:
@@ -146,7 +147,8 @@ def test_device_sweep_and_human_baseline_match_jax(rng):
                                [True, False], [True, True, True]],
                  question_ids=[f"q{i}" for i in range(4)])
     want = jdev.human_evaluation_device([batch], jwd, jwod, task="air")
-    got = tdev.human_evaluation_device([batch], twd, twod, task="air")
+    got = tdev.human_evaluation_device([batch], twd, twod, task="air",
+                                       device="cpu")
     for cat in ("all", "right_answer", "wrong_answer"):
         _assert_tree(want[0][cat], got[0][cat], cat)
         _assert_tree(want[1][cat], got[1][cat], cat)
@@ -245,8 +247,17 @@ def test_eval_slice_matches_jax(tmp_path, rng):
     # test_device_sweep_and_human_baseline_match_jax; here against the
     # host suite on the split's own batches
     for w, g in zip(theval.human_evaluation(tb)[:2],
-                    tdev.human_evaluation_device(tb, *tspecs)[:2]):
+                    tdev.human_evaluation_device(tb, *tspecs,
+                                                 device="cpu")[:2]):
         _assert_tree(w, g)
+
+
+def test_human_evaluation_device_defaults_to_the_card():
+    """Like the CLIs, the device human baseline runs on the card unless
+    the caller asks for the CPU (the tests here pass device="cpu")."""
+    import inspect
+    sig = inspect.signature(tdev.human_evaluation_device)
+    assert sig.parameters["device"].default == "cuda"
 
 
 def test_cli_test_runs_on_cpu(tmp_path, rng):
