@@ -9,39 +9,53 @@ Phases, each reporting on its own lines and with its wall time:
    power limit as nvidia-smi reports them;
 2. build: compiles the port's CUDA kernels from csrc/ and prints the
    build time and the compiler's register/spill report;
-3. data: writes a synthetic OSIE test split from a seed (32 images of
-   800x600, 15 subjects each, 3-20 fixations of 100-800 ms) and a
-   reference-layout checkpoint_best.pth of seed weights;
+3. data: writes, from a seed, a synthetic evaluation split for each task
+   at its dataset's frame, with a reference-layout checkpoint_best.pth
+   of seed weights: OSIE (test split, 32 images of 800x600, 15 subjects
+   each), AiR (test split, 32 questions on images of 300-700 x 400-900,
+   an attention map each, 15 subjects with right and wrong answers; the
+   AiR frame range, subject count and answer mix are assumptions, see
+   TEST_SUBJECTS) and
+   COCO-Search18 (validation split, 32 trials of 320x512 over four
+   target categories, 10 subjects each, detector boxes above and below
+   the 0.8 threshold); 3-20 fixations of 100-800 ms a subject;
 4. kernels: each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at edge ones (pixel counts off the
    128-pixel tile, column counts off the tile widths, dilation 2, two
    signal streams): the cell and stage kernels in float32 (TF32 off) and
    bfloat16 within a tolerance, the NW kernel exactly (max abs error 0,
-   NaN in the same places) at every shape the test driver launches it
-   (the human baseline, 3600 pairs, and a pair_rows batch, 240 pairs,
-   each for both ScanMatch tables) and at ragged ones (out-of-table
-   symbols among them); prints the max abs error, the times (for NW
-   also the kernel's device time, the wrapper's host time and the NW ms
-   per test run), the least time the card could take, the achieved
-   TFLOP/s and share of that bound, each launch's tiles and waves over
-   the SMs, and beside the cell, as a yardstick the port never calls,
-   cuDNN's gate conv alone;
-5. serving slice: serves 12 images through scanpaths_tpu_torch.cli.predict
-   at full width (ResNet-50, embed 512, 240x320, T=16, batch 8, weights
-   from a seed), greedy and sampled, float32 and bfloat16; checks the
-   records and that every forward launched the cell kernel 16 times and
-   the stage kernel 3 times; then runs one forward through the kernels
-   and through the plain versions, compares and times them (in float32
-   also each cell call of both against the plain version in float64),
-   and splits one forward's device time with torch.profiler;
-6. test slice: runs scanpaths_tpu_torch.cli.test --device_eval true at
-   full width (batch 16, 10 repeats) over the synthetic split in
-   float32 and bfloat16; checks the prediction records and the launch
-   counts (per forward 16 cell and 3 stage launches; 2 NW launches per
-   human-baseline batch and per repeat of a batch); then holds the
-   float32 device sweep to the host suite on the first batch's human
-   baseline and first two repeats (rtol 2e-4, atol 2e-5; the rollouts'
-   durations capped on both sides, see compare_with_host);
+   NaN in the same places) at every shape each task's test driver
+   launches it (its human baseline and a pair_rows batch, each for both
+   ScanMatch tables) and at ragged ones (out-of-table symbols among
+   them); prints the max abs error, the times (for NW also the kernel's
+   device time, the wrapper's host time and the NW ms per test run of
+   each task), the least time the card could take, the achieved TFLOP/s
+   and share of that bound, each launch's tiles and waves over the SMs,
+   and beside the cell, as a yardstick the port never calls, cuDNN's
+   gate conv alone;
+5. serving slice, for each task: serves 12 images through
+   scanpaths_tpu_torch.cli.predict at full width (ResNet-50, embed 512,
+   240x320, T=16, batch 8, weights from a seed), greedy and sampled,
+   float32 and bfloat16 (AiR with seeded attention maps, COCO with three
+   target categories, so three bank heads share a batch); checks the
+   records (every value finite, but for COCO's sampled durations whose
+   exponent, recomputed in float64 from the sampler's mu, sigma2 and
+   normal draw, lies past float32's range; so in phase 6) and that
+   every forward launched the cell kernel 16 times
+   (with two signal streams for AiR, one otherwise) and the stage
+   kernel 3 times; then runs one forward through the kernels and
+   through the plain versions, compares and times them (in float32 also
+   each cell call of both against the plain version in float64), and
+   splits one forward's device time with torch.profiler;
+6. test slice, for each task: runs scanpaths_tpu_torch.cli.test
+   --device_eval true at full width (batch 16, 10 repeats, both streams
+   for AiR) over the task's split in float32 and bfloat16; checks the
+   prediction records and the launch counts (per forward 16 cell and 3
+   stage launches; 2 NW launches per human-baseline batch and per repeat
+   of a batch and stream); then holds the float32 device sweep to the
+   host suite on the first batch's human baseline and first two repeats
+   of each stream (rtol 2e-4, atol 2e-5; the rollouts' durations capped
+   on both sides, see compare_with_host);
 7. prints the kernels' JSON line, then {"ok": true, "device": ...} as
    the last line.
 
@@ -51,6 +65,8 @@ result line.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -69,7 +85,17 @@ HOST_RTOL, HOST_ATOL = 2e-4, 2e-5  # device sweep vs host suite
 IMAGES = 12
 BATCH = 8
 SEQ = 16
-TEST_IMAGES, TEST_SUBJECTS, TEST_BATCH, REPEATS = 32, 15, 16, 10
+TASKS = ("osie", "air", "coco")
+TEST_IMAGES, TEST_BATCH, REPEATS = 32, 16, 10
+# subjects a split's image: OSIE's 15 observers and COCO-Search18's 10
+# a trial are the datasets' counts.  AiR's 15 (9 right answers, 3 wrong,
+# 3 failed, so every answer bucket fills) and its 300-700 x 400-900
+# frames (tools/make_synth_data.py's range) are assumptions: no source
+# for AiR-D's participant count, answer mix or frame sizes is at hand.
+TEST_SUBJECTS = {"osie": 15, "air": 15, "coco": 10}
+# COCO categories: of the served images, in turn, and of the split's trials
+SERVE_TARGETS = ("cup", "tv", "car")
+SPLIT_TARGETS = ("bottle", "chair", "laptop", "sink")
 PRED_DURATION_CAP = 0.8  # s, the split's longest fixation; 16 x 16 symbols
 
 # Published H100 SXM peaks (dense): float32 on the CUDA cores, bf16 on
@@ -204,7 +230,8 @@ def _waves(label, grid, sms):
 def check_kernels(cell, block):
     """The cell and stage kernels; returns {kernel: {"max_abs_err", "ms",
     "plain_ms", "bound_ms", "bound_by", "bf16_..."}} at the main path's
-    shapes (float32 keys unprefixed, bfloat16 ones prefixed)."""
+    shapes (float32 keys unprefixed, bfloat16 ones prefixed; the cell's
+    two-stream shape, AiR's, also prefixed "s2_")."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -241,11 +268,12 @@ def check_kernels(cell, block):
                          f"{_rate(flops, ms, bound_ms)}); "
                          + _waves("grid", cell.cell_grid(n, h, w, c, dtype),
                                   sms))
-                if label == "main S=1":
-                    summary["cell_step"].update({
-                        pre + "max_abs_err": err, pre + "ms": ms,
-                        pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
-                        pre + "bound_by": bound_by})
+                # S=1 (OSIE, COCO) unprefixed, S=2 (AiR) under "s2_"
+                sp = pre + ("" if label == "main S=1" else "s2_")
+                summary["cell_step"].update({
+                    sp + "max_abs_err": err, sp + "ms": ms,
+                    sp + "plain_ms": plain_ms, sp + "bound_ms": bound_ms,
+                    sp + "bound_by": bound_by})
             print(line, flush=True)
 
         # yardstick, not called by the port: cuDNN's gate conv alone at
@@ -316,70 +344,184 @@ def check_kernels(cell, block):
     return summary
 
 
-def _check_records(records, n_images, n_rollouts, width, height):
+def _check_records(records, n_images, n_rollouts, width, height,
+                   extra=None, overflow=0):
+    """Prediction records: the reference schema (``extra`` names the
+    test driver's AiR/COCO fields, whose records name the image
+    ``img_names``), lengths, finite positions in the frame, durations
+    >= 0 and finite except for exactly ``overflow`` +inf ones (the count
+    ``overflowed_durations`` justified)."""
     if len(records) != n_images * n_rollouts:
         raise AssertionError(f"{len(records)} records, expected "
                              f"{n_images * n_rollouts}")
+    keys = {"repeat_id", "X", "Y", "T", "length"} | (
+        {"img_names", *extra} if extra else {"name"})
+    inf = 0
     for r in records:
-        if set(r) != {"name", "repeat_id", "X", "Y", "T", "length"}:
+        if set(r) != keys:
             raise AssertionError(f"record keys {sorted(r)}")
         n = r["length"]
         if not (0 <= n <= SEQ and len(r["X"]) == len(r["Y"]) == len(r["T"])
                 == n):
             raise AssertionError(f"record lengths {r}")
-        vals = np.asarray(r["X"] + r["Y"] + r["T"], np.float64)
-        if not np.isfinite(vals).all():
+        xy = np.asarray(r["X"] + r["Y"], np.float64)
+        dur = np.asarray(r["T"], np.float64)
+        if not np.isfinite(xy).all() or np.isnan(dur).any():
             raise AssertionError(f"non-finite record {r}")
         if any(not 0 <= x <= width for x in r["X"]) or \
                 any(not 0 <= y <= height for y in r["Y"]) or \
-                any(t < 0 for t in r["T"]):
+                bool((dur < 0).any()):
             raise AssertionError(f"record out of range {r}")
+        inf += int(np.isinf(dur).sum())
+    if inf != overflow:
+        raise AssertionError(f"{inf} durations of the records are +inf, "
+                             f"{overflow} overflow float32 in the sampler")
 
 
-def run_slice(cell, block, predict, tmp):
-    """The serving slice; returns the launch counts of the served
-    runs."""
+LOG_F32_MAX = math.log(torch.finfo(torch.float32).max)
+
+
+@contextlib.contextmanager
+def capture_durations():
+    """Records each call of the sampler's random_sample_from_noise: the
+    sampled durations, their exponent normal * sigma2 + mu recomputed in
+    float64 from the same mu, sigma2 and normal draw, and the duration
+    mask, on the host."""
+    from scanpaths_tpu_torch.ops import sampling
+    real, calls = sampling.random_sample_from_noise, []
+
+    def sample(probs, mu, sigma2, grid, gumbel, normal):
+        out = real(probs, mu, sigma2, grid, gumbel, normal)
+        calls.append((out.durations.float().cpu(),
+                      (normal.double() * sigma2.double()
+                       + mu.double()).cpu(),
+                      out.duration_mask.bool().cpu()))
+        return out
+    with mock.patch.object(sampling, "random_sample_from_noise", sample):
+        yield calls
+
+
+def overflowed_durations(calls, reals, task, ms_in_float32):
+    """The durations of the written records that overflow float32, from
+    ``capture_durations``'s calls (``reals``: each call's images that get
+    records, the rest pad the batch).  A record's duration is d * 1000 ms,
+    in float32 (``ms_in_float32``, cli/predict.py) or float64
+    (cli/test.py).  Only COCO's seed model has a LogNormal scale that
+    reaches float32's range; OSIE and AiR must have none.  Each overflow
+    must be one the float64 exponent, plus log(1000) where the ms are
+    float32, puts past float32's range; raises otherwise."""
+    if len(calls) != len(reals):
+        raise AssertionError(f"{len(calls)} sampler calls, expected "
+                             f"{len(reals)}")
+    count = 0
+    for (dur, expo, valid), real in zip(calls, reals):
+        valid = valid[:, :real]
+        dur, expo = dur[:, :real][valid], expo[:, :real][valid]
+        if ms_in_float32:
+            inf, expo = torch.isinf(dur * 1000.0), expo + math.log(1000.0)
+        else:
+            inf = torch.isinf(dur)
+        if bool(inf.any()) and task != "coco":
+            raise AssertionError(f"{task}: {int(inf.sum())} sampled "
+                                 "durations overflow float32")
+        short = expo[inf] <= LOG_F32_MAX - 1e-3 * expo[inf].abs().clamp(
+            min=1.0)
+        if bool(short.any()):
+            raise AssertionError(
+                f"{task}: a sampled duration overflows float32 at exponent "
+                f"{float(expo[inf][short].min()):.4g} (float32's range ends "
+                f"at {LOG_F32_MAX:.4g})")
+        count += int(inf.sum())
+    return count
+
+
+def _counting_streams(cell):
+    """A stand-in for cell.cell_step that calls it and records each
+    call's signal-stream count (the launch count stays the wrapper's)."""
+    real, streams = cell.cell_step, []
+
+    def step(h, c, xg, smaps, *a):
+        streams.append(smaps.shape[-1])
+        return real(h, c, xg, smaps, *a)
+    return step, streams
+
+
+def serving_inputs(tmp, task):
+    """The CLI flags of a task's conditioning inputs for the served
+    images: seeded attention maps (AiR) or a target category per image
+    (COCO, SERVE_TARGETS in turn, so a batch holds three bank heads)."""
+    if task == "air":
+        rng = np.random.default_rng(3)
+        paths = []
+        for i in range(IMAGES):
+            paths.append(os.path.join(tmp, f"att_{i:02d}.npy"))
+            np.save(paths[-1], rng.uniform(0.05, 1.0, (24, 32)).astype(
+                np.float32))
+        return ["--predict_att", ",".join(paths)]
+    if task == "coco":
+        return ["--target_category", ",".join(
+            SERVE_TARGETS[i % len(SERVE_TARGETS)] for i in range(IMAGES))]
+    return []
+
+
+def run_slice(cell, block, predict, tmp, task):
+    """The serving slice of one task; returns the launch counts of the
+    served runs."""
     from PIL import Image
-    rng = np.random.default_rng(0)
     img_dir = os.path.join(tmp, "images")
-    os.makedirs(img_dir)
-    for i in range(IMAGES):
-        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)) \
-            .save(os.path.join(img_dir, f"img_{i:02d}.png"))
-    common = ["--task", "osie", "--predict_images", img_dir,
+    if not os.path.isdir(img_dir):
+        rng = np.random.default_rng(0)
+        os.makedirs(img_dir)
+        for i in range(IMAGES):
+            Image.fromarray(rng.integers(0, 256, (480, 640, 3),
+                                         dtype=np.uint8)) \
+                .save(os.path.join(img_dir, f"img_{i:02d}.png"))
+    common = ["--task", task, "--predict_images", img_dir,
               "--batch", str(BATCH), "--embed", "512",
               "--backbone_layers", "3,4,6,3", "--height", "240",
               "--width", "320", "--map_height", "30", "--map_width", "40",
-              "--max_length", str(SEQ), "--seed", "0", "--device", "cuda"]
+              "--max_length", str(SEQ), "--seed", "0", "--device", "cuda"] \
+        + serving_inputs(tmp, task)
     runs = [("greedy", "false"), ("sample", "false"), ("greedy", "true"),
             ("sample", "true")]
     forwards = -(-IMAGES // BATCH)
-    cell.cell_launches = 0
-    block.block_launches = 0
+    want_s = 2 if task == "air" else 1
+    totals = {"cell_step": 0, "stage_apply": 0}
     for decode, half in runs:
-        c0, b0 = cell.cell_launches, block.block_launches
+        step, streams = _counting_streams(cell)
+        cell.cell_launches = block.block_launches = 0
         t0 = time.perf_counter()
-        records = predict.main(common + [
-            "--decode", decode, "--num_samples", "10",
-            "--half_precision", half,
-            "--predict_out", os.path.join(tmp, f"{decode}_{half}.json")])
+        with mock.patch.object(cell, "cell_step", step), \
+                capture_durations() as calls:
+            records = predict.main(common + [
+                "--decode", decode, "--num_samples", "10",
+                "--half_precision", half,
+                "--predict_out", os.path.join(tmp, f"{decode}_{half}.json")])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        dc, db = cell.cell_launches, block.block_launches
+        inf = overflowed_durations(
+            calls, [min(BATCH, IMAGES - lo) for lo in range(0, IMAGES, BATCH)]
+            if decode == "sample" else [], task, True)
         _check_records(records, IMAGES, 10 if decode == "sample" else 1,
-                       320, 240)
-        dc, db = cell.cell_launches - c0, block.block_launches - b0
-        if dc != SEQ * forwards or db != 3 * forwards:
+                       320, 240, overflow=inf)
+        if dc != SEQ * forwards or db != 3 * forwards or \
+                set(streams) != {want_s}:
             raise AssertionError(
-                f"{decode} half={half}: {forwards} forwards launched the "
-                f"cell kernel {dc} times and the stage kernel {db} times "
-                f"(expected {SEQ * forwards} and {3 * forwards})")
-        print(f"[slice] predict --decode {decode} --half_precision {half}: "
-              f"{len(records)} records from {IMAGES} images, {forwards} "
-              f"forwards, cell launches {dc}, stage launches {db}, "
-              f"{secs:.2f} s wall (model build and image load included)",
+                f"{task} {decode} half={half}: {forwards} forwards launched "
+                f"the cell kernel {dc} times (streams {sorted(set(streams))})"
+                f" and the stage kernel {db} times (expected "
+                f"{SEQ * forwards} with S={want_s} and {3 * forwards})")
+        totals["cell_step"] += dc
+        totals["stage_apply"] += db
+        print(f"[slice] {task} predict --decode {decode} --half_precision "
+              f"{half}: {len(records)} records from {IMAGES} images, "
+              f"{forwards} forwards, cell launches {dc} (S={want_s}), stage "
+              f"launches {db}, {secs:.2f} s wall (model build and image "
+              f"load included); {inf} sampled durations overflow float32 "
+              "(each past float32's range by its float64 exponent)",
               flush=True)
-    return {"cell_step": cell.cell_launches,
-            "stage_apply": block.block_launches}
+    return totals
 
 
 # Input scale of the whole-output comparison.  The seed-weight network
@@ -393,11 +535,24 @@ def run_slice(cell, block, predict, tmp):
 COMPARE_SCALE = 0.1
 
 
+def _union_ms(spans):
+    """The time (ms) covered by a list of (start, end) intervals in us."""
+    busy, reach = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        busy += max(0.0, hi - max(lo, reach)) / 1e3
+        reach = max(reach, hi)
+    return busy
+
+
 def profile_forward(fn, label):
     """One call of fn() under torch.profiler after a warm-up: the device
-    busy time (the kernels' and copies' sum on the one stream), the span
+    busy time (the union of the kernels' and copies' intervals), the span
     between CUDA events around the call, the idle share, the cell
-    kernel's share of the busy time, and the five largest kernels.  The
+    kernel's share of the busy time, and the five largest kernels by
+    summed time, as shares of the busy time (as in earlier records).
+    Where the summed kernel time exceeds the busy time, kernels overlap:
+    the line then gives each stream's kernels (the trace's stream ids),
+    the overlap inside one stream and the overlap across streams.  The
     profiler adds host time, so the span is longer than an unprofiled
     call."""
     from torch.autograd import DeviceType
@@ -413,37 +568,63 @@ def profile_forward(fn, label):
         end.record()
         torch.cuda.synchronize()
     span = start.elapsed_time(end)
-    times = {}
-    for evt in prof.key_averages():
+    times, streams = {}, {}
+    for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        times[evt.key] = times.get(evt.key, 0.0) + us / 1e3
-    busy = sum(times.values())
-    if busy == 0.0:
+        us = evt.time_range.end - evt.time_range.start
+        times[evt.name] = times.get(evt.name, 0.0) + us / 1e3
+        streams.setdefault(getattr(evt, "device_resource_id", None), []) \
+            .append((evt.time_range.start, evt.time_range.end))
+    busy = _union_ms([iv for ivs in streams.values() for iv in ivs])
+    total = sum(times.values())
+    if total == 0.0:
         print(f"[profile] forward {label}: the trace holds no device time",
               flush=True)
         return
+    per_stream = {sid: _union_ms(ivs) for sid, ivs in streams.items()}
+    inside = total - sum(per_stream.values())
+    across = sum(per_stream.values()) - busy
     cell_ms = sum(v for k, v in times.items() if "cell_" in k)
     top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
     print(f"[profile] forward {label}: device busy {busy:.2f} ms of a "
-          f"{span:.2f} ms span ({100 * (1 - busy / span):.1f}% idle); cell "
-          f"kernel {cell_ms:.2f} ms ({100 * cell_ms / busy:.1f}% of busy); "
-          "largest: " + "; ".join(f"{k[:60]} {v:.2f} ms "
-                                  f"({100 * v / busy:.1f}%)" for k, v in top),
-          flush=True)
+          f"{span:.2f} ms span ({100 * (1 - busy / span):.1f}% idle); kernel "
+          f"time summed {total:.2f} ms on {len(streams)} stream(s) ("
+          + ", ".join(f"id {sid}: {len(streams[sid])} events, "
+                      f"{per_stream[sid]:.2f} ms covered"
+                      for sid in sorted(streams, key=str))
+          + f"), overlap {inside:.2f} ms inside a stream and {across:.2f} ms "
+          f"across streams; cell kernel {cell_ms:.2f} ms "
+          f"({100 * cell_ms / busy:.1f}% of busy); largest: "
+          + "; ".join(f"{k[:60]} {v:.2f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in top), flush=True)
 
 
-def compare_forward(cell, block, predictor_mod):
-    """Full-width forwards through the kernels and the plain versions on
-    the same weights and images: every kernel call of the served
-    forward checked against its plain version on the same inputs, the
-    whole outputs compared at COMPARE_SCALE, and both forwards timed."""
+def forward_inputs(task):
+    """A full-width batch for compare_forward: seeded images, attention
+    maps in [0, 1] (AiR, COCO) and task ids (COCO, SERVE_TARGETS in
+    turn), as numpy arrays."""
+    from scanpaths_tpu_torch.data.datasets import COCO_OBJECT_NAMES
+    rng = np.random.default_rng(1)
+    images = rng.standard_normal((BATCH, 240, 320, 3)).astype(np.float32)
+    maps = tids = None
+    if task != "osie":
+        maps = rng.uniform(0, 1, (BATCH, 30, 40, 1)).astype(np.float32)
+    if task == "coco":
+        tids = np.asarray([COCO_OBJECT_NAMES.index(
+            SERVE_TARGETS[i % len(SERVE_TARGETS)]) for i in range(BATCH)],
+            np.int32)
+    return images, maps, tids
+
+
+def compare_forward(cell, block, predictor_mod, task):
+    """Full-width forwards of one task through the kernels and the plain
+    versions on the same weights and inputs: every kernel call of the
+    served forward checked against its plain version on the same inputs,
+    the whole outputs (every key, both AiR streams) compared at
+    COMPARE_SCALE, and both forwards timed and profiled."""
     from scanpaths_tpu_torch.core.config import parse_opt
-    images = np.random.default_rng(1).standard_normal(
-        (BATCH, 240, 320, 3)).astype(np.float32)
+    images, maps, tids = forward_inputs(task)
 
     def plain():
         return (mock.patch.object(cell, "cell_step", cell.cell_step_plain),
@@ -451,16 +632,18 @@ def compare_forward(cell, block, predictor_mod):
                                   block.stage_apply_plain))
 
     for half, tol in (("false", F32_TOL), ("true", BF16_TOL)):
-        args = parse_opt(["--task", "osie", "--seed", "0",
+        args = parse_opt(["--task", task, "--seed", "0",
                           "--half_precision", half])
         pred = predictor_mod.Predictor(args, "cuda")
         errs = {"cell_step": [], "stage_apply": []}
+        streams = []
         # float32 only: the kernel's and the plain version's errors against
         # the plain version in float64 on the same inputs, per call
         f64_errs = {"kernel": [], "plain": []}
         cell_k, stage_k = cell.cell_step, block.stage_apply
 
         def checked_cell(h, c, *a):
+            streams.append(a[1].shape[-1])
             c_p = c.clone()
             c_d = c.double() if half == "false" else None
             h_k, c_k = cell_k(h, c, *a)
@@ -487,42 +670,48 @@ def compare_forward(cell, block, predictor_mod):
 
         with mock.patch.object(cell, "cell_step", checked_cell), \
                 mock.patch.object(block, "stage_apply", checked_stage):
-            pred.forward(images)
+            pred.forward(images, maps, tids)
         torch.cuda.synchronize()
-        print(f"[slice] forward half={half}: each kernel call checked "
+        if len(errs["cell_step"]) != SEQ or len(errs["stage_apply"]) != 3:
+            raise AssertionError(f"{task} forward: {len(errs['cell_step'])} "
+                                 f"cell and {len(errs['stage_apply'])} stage "
+                                 "calls")
+        print(f"[slice] {task} forward half={half}: each kernel call checked "
               f"against its plain version on the same inputs: "
               + ", ".join(f"{k} {len(v)} calls, max abs err {max(v):.3g}"
-                          for k, v in errs.items()), flush=True)
+                          for k, v in errs.items())
+              + f"; signal streams of the cell calls: {streams}", flush=True)
         if half == "false":
-            print("[slice] forward half=false: cell_step max abs err against "
-                  "its plain version in float64, calls 1 and 16 (largest): "
+            print(f"[slice] {task} forward half=false: cell_step max abs err "
+                  "against its plain version in float64, calls 1 and 16 "
+                  "(largest): "
                   + ", ".join(f"{side} {v[0]:.3g} and {v[-1]:.3g} "
                               f"({max(v):.3g})" for side, v in f64_errs.items())
                   + " (plain = cuDNN's float32 conv without TF32)",
                   flush=True)
 
         def kern(x=images):
-            return pred.forward(x)
+            return pred.forward(x, maps, tids)
 
         def ref(x=images):
             p1, p2 = plain()
             with p1, p2:
-                return pred.forward(x)
+                return pred.forward(x, maps, tids)
         out_k, out_p = kern(), ref()
         for k in out_k:
             if not bool(torch.isfinite(out_k[k]).all()):
-                raise AssertionError(f"forward output {k} not finite")
+                raise AssertionError(f"{task} forward output {k} not finite")
         unit = {k: float((out_k[k] - out_p[k]).abs().max()) for k in out_k}
         scaled = COMPARE_SCALE * images
         out_k, out_p = kern(scaled), ref(scaled)
         torch.cuda.synchronize()
         if half == "false":
             for k in out_k:
-                _close(f"forward {k} at scale {COMPARE_SCALE}", out_k[k],
-                       out_p[k], F32_TOL, scaled=True)
+                _close(f"{task} forward {k} at scale {COMPARE_SCALE}",
+                       out_k[k], out_p[k], F32_TOL, scaled=True)
         ms, plain_ms = _pair_ms(kern, ref, 3)
-        profile_forward(kern, f"N={BATCH} half={half}")
-        print(f"[slice] forward N={BATCH} 240x320 T={SEQ} half={half}: "
+        profile_forward(kern, f"{task} N={BATCH} half={half}")
+        print(f"[slice] {task} forward N={BATCH} 240x320 T={SEQ} half={half}: "
               f"{ms:.2f} ms with kernels, {plain_ms:.2f} ms plain; "
               f"outputs max abs err at input scale {COMPARE_SCALE}"
               + (" (checked)" if half == "false" else "") + ": "
@@ -534,43 +723,110 @@ def compare_forward(cell, block, predictor_mod):
         del pred
 
 
-def write_test_split(tmp):
-    """A synthetic OSIE test split and a reference-layout checkpoint of
-    seed weights, all from seed 0.  Returns the test CLI's flags."""
+def _fixations(rng, w, h):
+    """One subject's scanpath on a w x h frame: 3-20 fixations of
+    100-800 ms."""
+    n = int(rng.integers(3, 21))
+    return (n, rng.uniform(0, w, n).tolist(), rng.uniform(0, h, n).tolist(),
+            rng.uniform(100, 800, n))
+
+
+def _write_records(task, rng, img_dir, att_dir):
+    """The split's records (and images, attention maps, detector boxes)
+    of one task at its dataset's frame; returns (records, detector)."""
     from PIL import Image
 
+    from scanpaths_tpu_torch.data.datasets import COCO_OBJECT_NAMES
+
+    def image(path, h, w):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) \
+            .save(path)
+    recs, dets = [], []
+    for i in range(TEST_IMAGES):
+        if task == "osie":
+            h, w, name = 600, 800, f"{1001 + i}.jpg"
+            image(os.path.join(img_dir, name), h, w)
+        elif task == "air":
+            h, w = int(rng.integers(300, 701)), int(rng.integers(400, 901))
+            name, qid = f"air_{i:03d}.jpg", f"q{i:05d}"
+            answer = ("yes", "no")[i % 2]
+            image(os.path.join(img_dir, name), h, w)
+            np.save(os.path.join(att_dir, qid + ".npy"),
+                    rng.uniform(0.05, 1.0, (h // 20, w // 20)).astype(
+                        np.float32))
+        else:
+            h, w, name = 320, 512, f"{i:012d}.jpg"
+            cat = SPLIT_TARGETS[i % len(SPLIT_TARGETS)]
+            other = COCO_OBJECT_NAMES[(COCO_OBJECT_NAMES.index(cat) + 1) % 18]
+            os.makedirs(os.path.join(img_dir, cat), exist_ok=True)
+            image(os.path.join(img_dir, cat, name), h, w)
+            # the target's boxes above and below the threshold, and
+            # another category's box above it
+            for category, score in ((cat, 0.95), (cat, 0.5), (other, 0.9)):
+                x0, y0 = rng.uniform(0, w - 120), rng.uniform(0, h - 100)
+                dets.append({"image_id": name.split(".")[0],
+                             "category": category, "score": score,
+                             "bbox": [x0, y0, x0 + rng.uniform(40, 120),
+                                      y0 + rng.uniform(30, 100)]})
+        for subject in range(TEST_SUBJECTS[task]):
+            n, xs, ys, dur = _fixations(rng, w, h)
+            rec = {"X": xs, "Y": ys, "length": n}
+            if task == "osie":
+                rec.update(name=name, subject=subject, T=dur.tolist())
+            elif task == "coco":
+                rec.update(name=name, task=cat, subject=subject,
+                           T=dur.tolist())
+            else:
+                start = np.concatenate([[0.0], np.cumsum(dur)[:-1]])
+                # 9 right answers, 3 wrong and 3 failed a question (an
+                # assumed mix, see TEST_SUBJECTS)
+                given = (answer if subject % 5 < 3 else
+                         "faild" if subject % 5 == 4 else
+                         ("no", "yes")[i % 2])
+                rec.update(image_id=name, question_id=qid, height=h,
+                           width=w, T_start=start.tolist(),
+                           T_end=(start + dur).tolist(), answer=answer,
+                           subject_answer=given)
+            recs.append(rec)
+    return recs, dets
+
+
+def write_test_split(tmp, task):
+    """A synthetic evaluation split of one task and a reference-layout
+    checkpoint of full-width seed weights, all from seed 0 (module
+    docstring, phase 3).  Returns the test CLI's flags."""
     from scanpaths_tpu_torch.models import port
     from scanpaths_tpu_torch.models.scanpath_model import (ScanpathModel,
                                                            init_weights)
     rng = np.random.default_rng(0)
-    img_dir = os.path.join(tmp, "osie", "stimuli")
-    fix_dir = os.path.join(tmp, "osie", "fixations")
-    run_dir = os.path.join(tmp, "run")
-    for d in (img_dir, fix_dir, os.path.join(run_dir, "checkpoints")):
+    root = os.path.join(tmp, task)
+    img_dir, fix_dir, att_dir = (os.path.join(root, d)
+                                 for d in ("images", "fixations", "maps"))
+    run_dir = os.path.join(root, "run")
+    for d in (img_dir, fix_dir, att_dir,
+              os.path.join(run_dir, "checkpoints")):
         os.makedirs(d)
-    recs = []
-    for i in range(TEST_IMAGES):
-        name = f"{1001 + i}.jpg"
-        Image.fromarray(rng.integers(0, 256, (600, 800, 3), dtype=np.uint8)) \
-            .save(os.path.join(img_dir, name))
-        for subject in range(TEST_SUBJECTS):
-            n = int(rng.integers(3, 21))
-            recs.append({"name": name, "subject": subject,
-                         "X": rng.uniform(0, 800, n).tolist(),
-                         "Y": rng.uniform(0, 600, n).tolist(),
-                         "T": rng.uniform(100, 800, n).tolist(),
-                         "length": n})
-    with open(os.path.join(fix_dir, "osie_fixations_test.json"), "w") as f:
+    recs, dets = _write_records(task, rng, img_dir, att_dir)
+    fn = {"osie": "osie_fixations_test.json",
+          "air": "AiR_fixations_test.json",
+          "coco": "coco_search18_fixations_TP_validation_split1.json"}[task]
+    with open(os.path.join(fix_dir, fn), "w") as f:
         json.dump(recs, f)
-    model = ScanpathModel("osie")              # full width, float32
+    if task == "coco":
+        with open(os.path.join(att_dir, "coco_search18_detector.json"),
+                  "w") as f:
+            json.dump(dets, f)
+    model = ScanpathModel(task)                # full width, float32
     init_weights(model, 0)
-    torch.save(port.to_reference_state_dict(model.state_dict(),
+    torch.save(port.to_reference_state_dict(model.state_dict(), task,
                                             model.map_h, model.map_w),
                os.path.join(run_dir, "checkpoints", "checkpoint_best.pth"))
-    return ["--task", "osie", "--img_dir", img_dir, "--fix_dir", fix_dir,
+    del model
+    maps = {"air": ["--att_dir", att_dir], "coco": ["--detector_dir", att_dir]}
+    return ["--task", task, "--img_dir", img_dir, "--fix_dir", fix_dir,
             "--evaluation_dir", run_dir, "--batch", str(TEST_BATCH),
             "--eval_repeat_num", str(REPEATS), "--seed", "0",
-            "--device_eval", "true", "--device", "cuda"]
+            "--device_eval", "true", "--device", "cuda"] + maps.get(task, [])
 
 
 def _first_batch(argv):
@@ -584,7 +840,8 @@ def _first_batch(argv):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device")
     args = parse_opt(pre.parse_known_args(argv)[1])
-    ds = EvaluationDataset("osie", trainer.data_config(args), split="test")
+    split = "validation" if args.task == "coco" else "test"
+    ds = EvaluationDataset(args.task, trainer.data_config(args), split=split)
     batch = next(iter(Loader(ds, batch_size=args.batch)))
     return batch, trainer.eval_specs(ds, trainer.grid_spec(args))
 
@@ -647,12 +904,13 @@ def seeded_rollouts(n):
                             device="cuda"))
 
 
-def nw_shapes(tm, batch, specs):
-    """Every NW launch shape of one test-driver run, from the split's
-    first batch: [(label, launches per run, spec, (fix_a, len_a, fix_b,
-    len_b))].  Per spec, the human baseline (every ordered subject pair,
-    ``device_eval.human_rows``) runs once per batch and ``pair_rows``
-    (GT subjects against a rollout batch) once per repeat per batch."""
+def nw_shapes(tm, batch, specs, task):
+    """Every NW launch shape of one test-driver run of ``task``, from the
+    split's first batch: [(label, launches per run, spec, (fix_a, len_a,
+    fix_b, len_b))].  Per spec, the human baseline (every ordered subject
+    pair, ``device_eval.human_rows``) runs once per batch and
+    ``pair_rows`` (GT subjects against a rollout batch) once per repeat
+    per batch per stream (AiR decodes two)."""
     gt_fix = torch.as_tensor(batch["gt_fix"], device="cuda")
     gt_len = torch.as_tensor(batch["gt_len"], device="cuda")
     n, s, length = gt_fix.shape[:3]
@@ -666,53 +924,64 @@ def nw_shapes(tm, batch, specs):
             torch.repeat_interleave(pred_fix, s, dim=0),
             torch.repeat_interleave(pred_len, s, dim=0))
     forwards = -(-TEST_IMAGES // TEST_BATCH)
+    streams = 2 if task == "air" else 1
     return [(f"{part} {label}", runs, spec, pairs)
-            for part, runs, pairs in (("human baseline", forwards, human),
-                                      ("pair_rows", REPEATS * forwards, rows))
+            for part, runs, pairs in (
+                ("human baseline", forwards, human),
+                ("pair_rows", REPEATS * forwards * streams, rows))
             for label, spec in zip(("w/ duration", "w/o duration"), specs)]
 
 
-def check_nw(nw, tm, batch, specs):
+def check_nw(nw, tm, firsts):
     """The NW kernel against its plain version, exactly, and timed at
-    every shape the test driver launches it (``nw_shapes``), then on
-    ragged cases.  Prints the NW ms per test run (the launches of one
-    run times their ms, summed over shapes).  Returns the summary at the
-    human baseline's w/-duration shape, with the per-run ms added."""
-    summary, per_run = None, 0.0
-    for label, runs, spec, pairs in nw_shapes(tm, batch, specs):
-        sa, na = tm.quantize(spec, *pairs[:2])
-        sb, nb = tm.quantize(spec, *pairs[2:])
-        args = (spec.threshold, spec.xbin, spec.ybin, sa.contiguous(),
-                na.contiguous(), sb.contiguous(), nb.contiguous())
-        got = nw.nw_scores_bins(*args)
-        want = nw.nw_scores_bins_plain(*args)
-        torch.cuda.synchronize()
-        err = _exact(f"nw {label}", got, want)
-        ms, plain_ms = _pair_ms(lambda: nw.nw_scores_bins(*args),
-                                lambda: nw.nw_scores_bins_plain(*args), 200, 3)
-        per_run += runs * ms
-        dev_ms, host_ms = _device_and_host_ms(
-            lambda: nw.nw_scores_bins(*args), "nw_kernel", 200)
-        b, ta = sa.shape
-        tb = sb.shape[1]
-        cells = int((na.clamp(0, ta).long() * nb.clamp(0, tb).long()).sum())
-        bound_ms, bound_by = _bound(NW_OPS_PER_CELL * cells,
-                                    4 * (b * (ta + tb) + 3 * b),
-                                    PEAK_FLOPS[torch.float32])
-        print(f"[kernels] nw {label} B={b} Ta={ta} Tb={tb}: max_abs_err "
-              f"{err}, NaN {int(torch.isnan(got).sum())}, {ms:.4f} ms a "
-              f"call (kernel on the device "
-              + ("not in the trace" if dev_ms is None else f"{dev_ms:.4f} ms")
-              + f", host {host_ms:.4f} ms; plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.5f} ms by "
-              f"{bound_by}, {100 * bound_ms / ms:.1f}% of bound: {cells} DP "
-              f"cells; the longest row chain is {int(na.max())} rows); "
-              f"{runs} launches per test run", flush=True)
-        if summary is None:
-            summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] nw ms per test run: {per_run:.4f} ms", flush=True)
-    summary["ms_per_test_run"] = per_run
+    every shape each task's test driver launches it (``nw_shapes``;
+    ``firsts`` maps a task to its split's first batch and specs), then
+    on ragged cases.  Prints each task's NW ms per test run (the
+    launches of one run times their ms, summed over shapes).  Returns
+    the summary at OSIE's human-baseline w/-duration shape, with each
+    task's per-run ms added."""
+    summary = None
+    for task, (batch, specs) in firsts.items():
+        per_run, launches = 0.0, 0
+        for label, runs, spec, pairs in nw_shapes(tm, batch, specs, task):
+            sa, na = tm.quantize(spec, *pairs[:2])
+            sb, nb = tm.quantize(spec, *pairs[2:])
+            args = (spec.threshold, spec.xbin, spec.ybin, sa.contiguous(),
+                    na.contiguous(), sb.contiguous(), nb.contiguous())
+            got = nw.nw_scores_bins(*args)
+            want = nw.nw_scores_bins_plain(*args)
+            torch.cuda.synchronize()
+            err = _exact(f"nw {task} {label}", got, want)
+            ms, plain_ms = _pair_ms(lambda: nw.nw_scores_bins(*args),
+                                    lambda: nw.nw_scores_bins_plain(*args),
+                                    200, 3)
+            per_run += runs * ms
+            launches += runs
+            dev_ms, host_ms = _device_and_host_ms(
+                lambda: nw.nw_scores_bins(*args), "nw_kernel", 200)
+            b, ta = sa.shape
+            tb = sb.shape[1]
+            cells = int((na.clamp(0, ta).long() * nb.clamp(0, tb).long())
+                        .sum())
+            bound_ms, bound_by = _bound(NW_OPS_PER_CELL * cells,
+                                        4 * (b * (ta + tb) + 3 * b),
+                                        PEAK_FLOPS[torch.float32])
+            print(f"[kernels] nw {task} {label} B={b} Ta={ta} Tb={tb}: "
+                  f"max_abs_err {err}, NaN {int(torch.isnan(got).sum())}, "
+                  f"{ms:.4f} ms a call (kernel on the device "
+                  + ("not in the trace" if dev_ms is None
+                     else f"{dev_ms:.4f} ms")
+                  + f", host {host_ms:.4f} ms; plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.5f} ms by {bound_by}, "
+                  f"{100 * bound_ms / ms:.1f}% of bound: {cells} DP cells; "
+                  f"the longest row chain is {int(na.max())} rows); {runs} "
+                  "launches per test run", flush=True)
+            if summary is None:
+                summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[kernels] nw {task} ms per test run: {per_run:.4f} ms over "
+              f"{launches} launches", flush=True)
+        summary[f"{task}_ms_per_test_run"] = per_run
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     # ragged lengths and widths; the pair_rows batch size; a w/o-duration
@@ -766,9 +1035,11 @@ def _tree_close(name, want, got, skip=()):
     return worst
 
 
-def compare_with_host(device_eval, heval, batch, specs, captured):
+def compare_with_host(device_eval, heval, batch, specs, captured, task):
     """The float32 device sweep against the host suite on the first
-    batch's human baseline and its first two repeats.
+    batch's human baseline and its first two repeats of each stream:
+    ``captured`` holds those sweep calls' arguments (AiR's with the
+    subjects' answer flags and the stream's; bucketed on both sides).
 
     The seed-weight model samples LogNormal durations of up to hours,
     which the host ScanMatch expands into millions of symbols (it ran a
@@ -778,20 +1049,26 @@ def compare_with_host(device_eval, heval, batch, specs, captured):
     w/-duration table and all nine columns compare."""
     from scanpaths_tpu_torch.core.grid import fix_vector
     t0 = time.perf_counter()
-    want = heval.human_evaluation([batch])[:2]
-    got = device_eval.human_evaluation_device([batch], *specs,
+    want = heval.human_evaluation([batch], task=task)[:2]
+    got = device_eval.human_evaluation_device([batch], *specs, task=task,
                                               device="cuda")[:2]
-    err_h = max(_tree_close(f"human {part}", w, g)
+    err_h = max(_tree_close(f"{task} human {part}", w, g)
                 for part, w, g in zip(("metrics", "stds"), want, got))
     sweep = device_eval.DeviceSweep(*specs)
-    gts, preds, capped = [], [], 0
-    for gt_fix, gt_len, gt_mask, pred_fix, pred_len in captured:
+    gts, preds, perfs, allocs, capped = [], [], [], [], 0
+    for gt_fix, gt_len, gt_mask, pred_fix, pred_len, *air in captured:
         valid = torch.arange(pred_fix.shape[1], device=pred_fix.device) \
             < pred_len[:, None]
         capped += int(((pred_fix[..., 2] > PRED_DURATION_CAP) & valid).sum())
         pred_fix = pred_fix.clone()
         pred_fix[..., 2].clamp_(max=PRED_DURATION_CAP)
-        sweep.add_batch(gt_fix, gt_len, gt_mask, pred_fix, pred_len)
+        args = (gt_fix, gt_len, gt_mask, pred_fix, pred_len)
+        if air:
+            sweep.add_batch_air(*args, *air)
+            perfs.extend(air[0])
+            allocs.extend([air[1]] * len(air[0]))
+        else:
+            sweep.add_batch(*args)
         gts.extend(batch["fix_vectors"])
         fix, lens = pred_fix.cpu().numpy(), pred_len.cpu().numpy()
         preds.extend(fix_vector(fix[i, :n, 0], fix[i, :n, 1], fix[i, :n, 2])
@@ -799,23 +1076,30 @@ def compare_with_host(device_eval, heval, batch, specs, captured):
     if sweep.overflow["count"]:
         raise AssertionError(f"capped rollouts overflow the w/-duration "
                              f"table: {sweep.overflow}")
-    want = heval.evaluation(gts, preds)[:2]
+    want = (heval.evaluation_performance_related(gts, preds, perfs, allocs)
+            if task == "air" else heval.evaluation(gts, preds))[:2]
     got = sweep.result()
-    err_p = max(_tree_close(f"repeats {part}", w, g)
+    err_p = max(_tree_close(f"{task} repeats {part}", w, g)
                 for part, w, g in zip(("metrics", "stds"), want, got))
-    print(f"[test] float32 device sweep vs host suite, first batch: human "
-          f"baseline ({len(batch['img_names'])} images, "
+    print(f"[test] {task} float32 device sweep vs host suite, first batch: "
+          f"human baseline ({len(batch['img_names'])} images, "
           f"{sum(len(v) * (len(v) - 1) for v in batch['fix_vectors'])} "
-          f"pairs) max abs diff {err_h:.3g}; repeats 1-2 ({len(preds)} "
-          f"rollouts, {capped} fixations capped at {PRED_DURATION_CAP} s) "
-          f"max abs diff {err_p:.3g}; rtol {HOST_RTOL}, atol {HOST_ATOL}; "
+          f"pairs) max abs diff {err_h:.3g}; repeats 1-2 of "
+          f"{len(captured) // 2} stream(s) ({len(preds)} rollouts, {capped} "
+          f"fixations capped at {PRED_DURATION_CAP} s) max abs diff "
+          f"{err_p:.3g}; rtol {HOST_RTOL}, atol {HOST_ATOL}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _check_tree(metrics):
-    """The metric tree of a test run: ScanMatch in [0, 1], STDE in
-    [0, 1], SED >= 0, all finite; MultiMatch in [0, 1] or NaN (NaN when
-    every rollout has fewer than 3 fixations)."""
+    """The metric tree of a test run (each answer bucket of AiR's):
+    ScanMatch in [0, 1], STDE in [0, 1], SED >= 0, all finite; MultiMatch
+    in [0, 1] or NaN (NaN when every rollout has fewer than 3
+    fixations)."""
+    if "all" in metrics:
+        for bucket in metrics.values():
+            _check_tree(bucket)
+        return
     for group, lo, hi, nan_ok in (("MultiMatch", 0, 1, True),
                                   ("ScanMatch", 0, 1, False)):
         for k, v in metrics[group].items():
@@ -829,27 +1113,38 @@ def _check_tree(metrics):
 
 def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
                    batch, specs):
-    """The test CLI with the device sweep at full width, float32 and
-    bfloat16; returns the launch counts of both runs.  ``batch`` and
-    ``specs`` are the split's first batch and the sweep's specs."""
-    print(f"[test] split: {TEST_IMAGES} images x {TEST_SUBJECTS} subjects, "
-          f"w/-duration table {specs[0].max_symbols} symbols, w/o-duration "
-          f"table {specs[1].max_symbols}", flush=True)
+    """The test CLI of one task with the device sweep at full width,
+    float32 and bfloat16; returns the launch counts of both runs.
+    ``batch`` and ``specs`` are the split's first batch and the sweep's
+    specs."""
+    task = argv[argv.index("--task") + 1]
+    streams = 2 if task == "air" else 1
+    print(f"[test] {task} split: {TEST_IMAGES} images x "
+          f"{TEST_SUBJECTS[task]} subjects, w/-duration table "
+          f"{specs[0].max_symbols} symbols, w/o-duration table "
+          f"{specs[1].max_symbols}", flush=True)
     forwards = -(-TEST_IMAGES // TEST_BATCH)
     want = {"cell_step": SEQ * forwards, "stage_apply": 3 * forwards,
-            "nw_scores_bins": 2 * forwards + 2 * REPEATS * forwards}
+            "nw_scores_bins": 2 * forwards
+            + 2 * REPEATS * forwards * streams}
     totals = dict.fromkeys(want, 0)
     real_add = device_eval.DeviceSweep.add_batch
+    real_add_air = device_eval.DeviceSweep.add_batch_air
     real_human = test_cli.human_evaluation_device
     for half in ("false", "true"):
         captured, sweep_secs = [], [0.0]
 
-        def add_batch(self, *a):
-            if len(captured) < 2:
-                captured.append([x.detach().clone() for x in a])
-            t = time.perf_counter()
-            real_add(self, *a)
-            sweep_secs[0] += time.perf_counter() - t
+        def timed(real):
+            def add(self, *a):
+                # the first batch's first two repeats of each stream
+                if len([c for c in captured if c[6:] == list(a[6:])]) < 2:
+                    captured.append([x.detach().clone()
+                                     if torch.is_tensor(x) else x
+                                     for x in a])
+                t = time.perf_counter()
+                real(self, *a)
+                sweep_secs[0] += time.perf_counter() - t
+            return add
 
         def human(*a, **kw):
             t = time.perf_counter()
@@ -859,10 +1154,17 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
 
         cell.cell_launches = block.block_launches = nw.nw_launches = 0
         t0 = time.perf_counter()
+        # the CLI's logger echoes its metric trees (log_test.txt keeps
+        # them); they stay off the console, which keeps this script's
+        # own lines
         with mock.patch.object(device_eval.DeviceSweep, "add_batch",
-                               add_batch), \
+                               timed(real_add)), \
+                mock.patch.object(device_eval.DeviceSweep, "add_batch_air",
+                                  timed(real_add_air)), \
                 mock.patch.object(test_cli, "human_evaluation_device",
-                                  human):
+                                  human), \
+                capture_durations() as calls, \
+                contextlib.redirect_stdout(io.StringIO()):
             metrics = test_cli.main(argv + ["--half_precision", half])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -870,21 +1172,31 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
                "stage_apply": block.block_launches,
                "nw_scores_bins": nw.nw_launches}
         if got != want:
-            raise AssertionError(f"test --half_precision {half}: launches "
-                                 f"{got}, expected {want}")
+            raise AssertionError(f"{task} test --half_precision {half}: "
+                                 f"launches {got}, expected {want}")
         for k, v in got.items():
             totals[k] += v
         run_dir = argv[argv.index("--evaluation_dir") + 1]
-        with open(os.path.join(run_dir, "test_predicts.json")) as f:
+        out = "validation" if task == "coco" else "test"
+        with open(os.path.join(run_dir, f"{out}_predicts.json")) as f:
             records = json.load(f)
-        _check_records(records, TEST_IMAGES, REPEATS, 320, 240)
+        extra = {"air": ("qid", "performance"), "coco": ("task",)}
+        inf = overflowed_durations(
+            calls, [min(TEST_BATCH, TEST_IMAGES - lo)
+                    for lo in range(0, TEST_IMAGES, TEST_BATCH)
+                    for _ in range(streams)], task, False)
+        _check_records(records, TEST_IMAGES, REPEATS * streams, 320, 240,
+                       extra.get(task), inf)
         _check_tree(metrics)
-        print(f"[test] test --device_eval true --half_precision {half}: "
-              f"{len(records)} records, launches {got}, {secs:.2f} s wall, "
-              f"device sweep {sweep_secs[0]:.2f} s "
-              f"({100 * sweep_secs[0] / secs:.1f}%)", flush=True)
+        print(f"[test] {task} test --device_eval true --half_precision "
+              f"{half}: {len(records)} records in {out}_predicts.json "
+              f"({inf} sampled durations overflow float32), "
+              f"launches {got}, {secs:.2f} s wall, device sweep "
+              f"{sweep_secs[0]:.2f} s ({100 * sweep_secs[0] / secs:.1f}%)",
+              flush=True)
         if half == "false":
-            compare_with_host(device_eval, heval, batch, specs, captured)
+            compare_with_host(device_eval, heval, batch, specs, captured,
+                              task)
     return totals
 
 
@@ -942,30 +1254,33 @@ def main():
     if log.exists():
         print_ptxas(log.read_text())
 
+    launches = {"cell_step": 0, "stage_apply": 0, "nw_scores_bins": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        test_argv = write_test_split(tmp)
-        batch, specs = _first_batch(test_argv)
+        test_argv = {task: write_test_split(tmp, task) for task in TASKS}
+        firsts = {task: _first_batch(argv) for task, argv in test_argv.items()}
         _phase("data", t0)
 
         t0 = time.perf_counter()
         summary = check_kernels(cell, block)
-        summary["nw_scores_bins"] = check_nw(nw, tm, batch, specs)
+        summary["nw_scores_bins"] = check_nw(nw, tm, firsts)
         _phase("kernels", t0)
 
-        t0 = time.perf_counter()
-        launches = run_slice(cell, block, predict, tmp)
-        compare_forward(cell, block, predictor)
-        _phase("serving slice", t0)
+        for task in TASKS:
+            t0 = time.perf_counter()
+            add(run_slice(cell, block, predict, tmp, task))
+            compare_forward(cell, block, predictor, task)
+            _phase(f"serving slice {task}", t0)
 
-        t0 = time.perf_counter()
-        test_launches = run_test_slice(cell, block, nw, test_cli,
-                                       device_eval, heval, test_argv,
-                                       batch, specs)
-        _phase("test slice", t0)
-    launches["nw_scores_bins"] = 0
-    for k, v in test_launches.items():
-        launches[k] += v
+        for task in TASKS:
+            t0 = time.perf_counter()
+            add(run_test_slice(cell, block, nw, test_cli, device_eval, heval,
+                               test_argv[task], *firsts[task]))
+            _phase(f"test slice {task}", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),

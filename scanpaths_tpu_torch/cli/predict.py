@@ -1,10 +1,17 @@
 """Serving entry point: predict scanpaths for image files with the
-PyTorch port (OSIE).
+PyTorch port.
 
-    python -m scanpaths_tpu_torch.cli.predict --task osie \\
+    python -m scanpaths_tpu_torch.cli.predict --task osie|air|coco \\
         --predict_images img1.jpg,img2.jpg [--evaluation_dir RUN] \\
+        [--predict_att a1.npy,a2.npy] [--target_category cup] \\
         [--decode sample --num_samples 10] [--half_precision true] \\
         [--device cuda] [--predict_out scanpaths.json]
+
+Conditioning inputs: AiR and COCO take an attention map per image
+(``--predict_att`` .npy files, resized to the map and divided by their
+max; zeros when omitted); COCO also takes the search target
+(``--target_category``, one name for every image or one per image).  An
+AiR checkpoint serves its good (right-answer) stream.
 
 ``--device`` (default ``cuda``) is this CLI's own flag; every other flag
 is ``core/config.py::parse_opt``'s, the JAX package's CLI flags.  With
@@ -26,7 +33,8 @@ import numpy as np
 import torch
 
 from ..core.config import parse_opt
-from ..data.transforms import load_image
+from ..data.datasets import COCO_OBJECT_NAMES
+from ..data.transforms import load_image, resize_map
 from ..serve.predictor import Predictor
 
 
@@ -62,8 +70,9 @@ def main(argv=None) -> list[dict]:
     pre.add_argument("--device", default="cuda")
     ns, rest = pre.parse_known_args(argv)
     args = parse_opt(rest)
-    if args.task != "osie":
-        raise ValueError(f"--task {args.task}: only osie is ported")
+    if args.task == "joint":
+        raise NotImplementedError("--task joint: serve one task of a joint "
+                                  "run; joint runs are not ported")
     if args.bundle:
         raise ValueError("--bundle: exported bundles are not served by "
                          "the port")
@@ -74,9 +83,30 @@ def main(argv=None) -> list[dict]:
     paths = _expand_images(args.predict_images)
     if not paths:
         raise ValueError("--predict_images gave no image files")
-    if args.predict_att:
+    att_paths = [p for p in args.predict_att.split(",") if p]
+    if att_paths and args.task == "osie":
         print("[predict] warning: --predict_att is ignored for osie (the "
               "osie model takes no attention input)", file=sys.stderr)
+        att_paths = []
+    if att_paths and len(att_paths) != len(paths):
+        raise ValueError(f"{len(att_paths)} attention maps for "
+                         f"{len(paths)} images")
+    task_ids = None
+    if args.task == "coco":
+        cats = [c for c in args.target_category.split(",") if c]
+        if not cats:
+            raise ValueError("--target_category is required for coco")
+        if len(cats) == 1:
+            cats = cats * len(paths)
+        if len(cats) != len(paths):
+            raise ValueError(f"{len(cats)} target categories for "
+                             f"{len(paths)} images")
+        unknown = sorted(set(cats) - set(COCO_OBJECT_NAMES))
+        if unknown:
+            raise ValueError(f"--target_category {unknown}: not among "
+                             f"{COCO_OBJECT_NAMES}")
+        task_ids = np.asarray([COCO_OBJECT_NAMES.index(c) for c in cats],
+                              np.int32)
     if args.decode == "greedy" and args.num_samples > 1:
         print(f"[predict] warning: --num_samples {args.num_samples} is "
               "ignored under --decode greedy", file=sys.stderr)
@@ -84,6 +114,9 @@ def main(argv=None) -> list[dict]:
     predictor = Predictor(args, device)
     # 0 = the evaluation setting: eval_repeat_num scanpaths per image
     n_samples = args.num_samples or args.eval_repeat_num
+    # an AiR checkpoint serves its correct-answer stream
+    stream = "good" if args.task == "air" else None
+    mh, mw = args.map_height, args.map_width
     bs = max(args.batch, 1)
     blank = np.zeros((args.height, args.width, 3), np.float32)
     records = []
@@ -92,8 +125,17 @@ def main(argv=None) -> list[dict]:
         n_real = len(chunk)
         images = np.stack([load_image(p, args.height, args.width)
                            for p in chunk] + [blank] * (bs - n_real))
-        out = predictor.forward(images)
-        samples = predictor.decode(out, args.decode, n_samples)
+        maps = tids = None
+        if args.task in ("air", "coco"):
+            maps = np.zeros((bs, mh, mw, 1), np.float32)
+            for i, ap in enumerate(att_paths[lo:lo + bs]):
+                m = resize_map(np.load(ap).astype(np.float32), (mh, mw))
+                maps[i, ..., 0] = m / max(float(m.max()), 1e-12)
+        if task_ids is not None:
+            tids = np.zeros((bs,), np.int32)
+            tids[:n_real] = task_ids[lo:lo + n_real]
+        out = predictor.forward(images, maps, tids)
+        samples = predictor.decode(out, args.decode, n_samples, stream)
         samples = type(samples)(*(v[:, :n_real] for v in samples))
         records.extend(_records([os.path.basename(p) for p in chunk],
                                 samples))

@@ -1,20 +1,24 @@
-"""Test entry point of the PyTorch port (OSIE): load checkpoint_best,
-print the human baseline, sample ``eval_repeat_num`` scanpaths per
-image, write the prediction JSON, print the metric tree.
+"""Test entry point of the PyTorch port: load checkpoint_best, print the
+human baseline, sample ``eval_repeat_num`` scanpaths per image (per
+stream for AiR), write the prediction JSON, print the metric tree.
 
-    python -m scanpaths_tpu_torch.cli.test --task osie \\
+    python -m scanpaths_tpu_torch.cli.test --task osie|air|coco \\
         --evaluation_dir RUN --img_dir DIR --fix_dir DIR \\
+        [--att_dir DIR (air) | --detector_dir DIR (coco)] \\
         [--device_eval true] [--half_precision true] [--device cuda]
 
 ``RUN/checkpoints/checkpoint_best.pth`` is a reference-layout torch
-checkpoint.  The test split is ``osie_fixations_test.json`` under
-``--fix_dir``; the predictions go to ``RUN/test_predicts.json`` and the
-log to ``RUN/log_test.txt``.  With ``--device_eval true`` every pairwise
+checkpoint.  OSIE and AiR evaluate their test split and write
+``RUN/test_predicts.json``; COCO evaluates its validation split (it has
+no public test split, reference COCO_Search18/test.py:67-68) and writes
+``RUN/validation_predicts.json``; the log goes to ``RUN/log_test.txt``.
+AiR runs one eval forward per batch and decodes both of its streams
+(good, then poor) from it.  With ``--device_eval true`` every pairwise
 metric is computed on the device (``metrics/device_eval.py``); otherwise
-the host suite (``metrics/evaluation.py``) scores the predictions.
-``--device`` (default ``cuda``) is this CLI's own flag; with no card it
-raises unless ``--device cpu`` is given.  Every other flag is
-``core/config.py::parse_opt``'s.
+the host suite (``metrics/evaluation.py``) scores the predictions,
+bucketed by answer correctness for AiR.  ``--device`` (default ``cuda``)
+is this CLI's own flag; with no card it raises unless ``--device cpu``
+is given.  Every other flag is ``core/config.py::parse_opt``'s.
 """
 
 from __future__ import annotations
@@ -34,12 +38,17 @@ from ..ops.sampling import to_fix_vectors
 from ..train.trainer import Evaluator, data_config, eval_specs, log_metric_tree
 
 
-def dump_record(img_name, fix_vector, trial):
+def dump_record(img_name, fix_vector, trial, extra=None):
+    """A prediction record in the reference schema; AiR and COCO records
+    carry their ``extra`` fields and name the image ``img_names``, as the
+    reference's do."""
+    rec = {"img_names" if extra else "name": img_name}
+    rec.update(extra or {})
     arr = np.array(fix_vector.tolist()).reshape(-1, 3)
-    rec = {"name": img_name, "repeat_id": trial + 1,
-           "X": list(map(float, arr[:, 0])),
-           "Y": list(map(float, arr[:, 1])),
-           "T": list(map(float, arr[:, 2] * 1000))}
+    rec["repeat_id"] = trial + 1
+    rec["X"] = list(map(float, arr[:, 0]))
+    rec["Y"] = list(map(float, arr[:, 1]))
+    rec["T"] = list(map(float, arr[:, 2] * 1000))
     rec["length"] = len(rec["X"])
     return rec
 
@@ -49,8 +58,8 @@ def main(argv=None):
     pre.add_argument("--device", default="cuda")
     ns, rest = pre.parse_known_args(argv)
     args = parse_opt(rest)
-    if args.task != "osie":
-        raise NotImplementedError(f"--task {args.task}: only osie is ported")
+    if args.task == "joint":
+        raise NotImplementedError("--task joint: joint runs are not ported")
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
@@ -60,8 +69,9 @@ def main(argv=None):
         raise ValueError("--evaluation_dir (the training log dir) is "
                          "required")
     evaluator = Evaluator(args, log_dir, device)
+    split = "validation" if args.task == "coco" else "test"
     loader = Loader(EvaluationDataset(args.task, data_config(args),
-                                      split="test"),
+                                      split=split),
                     batch_size=args.batch)
 
     repeat = args.eval_repeat_num
@@ -77,31 +87,54 @@ def main(argv=None):
     evaluator.logger.info("The metrics for human performance are: ")
     log_metric_tree(evaluator.logger, human_metrics, human_std)
 
-    all_gt, all_pred, predict_results = [], [], []
+    # (stream, allocated performance flag) per decode of a batch
+    streams = ((("good", True), ("poor", False)) if args.task == "air"
+               else ((None, None),))
+    all_gt, all_pred, all_perf, all_alloc = [], [], [], []
+    predict_results = []
     for batch in loader:
         n = len(batch["fix_vectors"])
-        db, samples = evaluator.decode_batch_device(batch, repeat)
-        preds = to_fix_vectors(samples)              # repeat-major [R*N]
-        for r in range(repeat):
-            if sweep is not None:
-                # pairwise metrics stay on the device; the host only
-                # aggregates (metrics/device_eval.py)
-                sweep.add_batch(db["gt_fix"], db["gt_len"], db["gt_mask"],
-                                samples.fix[r], samples.fix_len[r])
-            else:
-                all_gt.extend(batch["fix_vectors"])
-                all_pred.extend(preds[r * n:(r + 1) * n])
-            for i in range(n):
-                predict_results.append(dump_record(
-                    batch["img_names"][i], preds[r * n + i], r))
+        db, per_stream = evaluator.decode_batch_device(
+            batch, repeat, [s for s, _ in streams])
+        for (_, flag), samples in zip(streams, per_stream):
+            preds = to_fix_vectors(samples)          # repeat-major [R*N]
+            for r in range(repeat):
+                if sweep is not None:
+                    # pairwise metrics stay on the device; the host only
+                    # aggregates (metrics/device_eval.py)
+                    gt = (db["gt_fix"], db["gt_len"], db["gt_mask"],
+                          samples.fix[r], samples.fix_len[r])
+                    if args.task == "air":
+                        sweep.add_batch_air(*gt, batch["performances"],
+                                            flag)
+                    else:
+                        sweep.add_batch(*gt)
+                else:
+                    all_gt.extend(batch["fix_vectors"])
+                    if args.task == "air":
+                        all_perf.extend(batch["performances"])
+                        all_alloc.extend([flag] * n)
+                    all_pred.extend(preds[r * n:(r + 1) * n])
+                for i in range(n):
+                    extra = None
+                    if args.task == "air":
+                        extra = {"qid": batch["question_ids"][i],
+                                 "performance": flag}
+                    elif args.task == "coco":
+                        extra = {"task": batch["task_names"][i]}
+                    predict_results.append(dump_record(
+                        batch["img_names"][i], preds[r * n + i], r, extra))
 
     if sweep is not None:
         cur_metrics, cur_std = sweep.result()
         sweep.log_overflow(evaluator.logger)
+    elif args.task == "air":
+        cur_metrics, cur_std, _ = heval.evaluation_performance_related(
+            all_gt, all_pred, all_perf, all_alloc)
     else:
         cur_metrics, cur_std, _ = heval.evaluation(all_gt, all_pred)
 
-    with open(join(log_dir, "test_predicts.json"), "w") as f:
+    with open(join(log_dir, f"{split}_predicts.json"), "w") as f:
         json.dump(predict_results, f, indent=2)
 
     evaluator.logger.info("The metrics for best model performance are: ")

@@ -1,5 +1,13 @@
 """The evaluation split's data: fixation JSON -> numpy batches (port of
-``scanpaths_tpu/data/datasets.py``, eval view, OSIE).
+``scanpaths_tpu/data/datasets.py``, eval view), with one task adapter
+per plugin:
+
+* ``osie`` — free viewing (reference OSIE/dataset/dataset.py);
+* ``air`` — VQA: a machine-attention map per question and the subjects'
+  answer correctness (reference AiR/dataset/dataset.py);
+* ``coco`` — visual search: the union of the target category's detector
+  boxes as the attention map, and the category id (reference
+  COCO_Search18/dataset/dataset.py).
 
 :class:`EvaluationDataset` groups the records per image and carries all
 subjects' ground truth, both as ragged host lists (``fix_vectors``, for
@@ -9,10 +17,10 @@ sweep).  The pad sizes come from the split, so no ground truth is cut:
 the subject axis is the largest group, the fixation axis the longest
 scanpath.  :class:`Loader` batches it in order in one process.
 
-Only the OSIE task is ported, so the config holds only what its
-evaluation split reads.  The supervised view waits for the training
-slice; the packed image store and the native gather of the JAX package
-are not carried over (``packed_cache_dir`` raises).
+The config holds only what the evaluation splits read.  The supervised
+view waits for the training slice; the packed image store and the
+native gather of the JAX package are not carried over
+(``packed_cache_dir`` raises).
 """
 
 from __future__ import annotations
@@ -26,14 +34,26 @@ from typing import Any
 import numpy as np
 
 from ..core.grid import fix_vector, pad_fix_vectors
-from .transforms import load_image
+from .transforms import load_image, resize_map
+
+EPSILON = 1e-7
+
+COCO_OBJECT_NAMES = [
+    "bottle", "bowl", "car", "chair", "clock", "cup", "fork", "keyboard",
+    "knife", "laptop", "microwave", "mouse", "oven", "potted plant", "sink",
+    "stop sign", "toilet", "tv",
+]
 
 
 @dataclasses.dataclass
 class DataConfig:
     img_dir: str
     fix_dir: str
+    att_dir: str | None = None          # AiR attention maps / COCO detector dir
+    action_map: tuple[int, int] = (30, 40)
     resize: tuple[int, int] = (240, 320)
+    detector_threshold: float = 0.8     # COCO (reference COCO opts.py:15)
+    coco_split: str = "split1"
     # floors for the pad sizes derived from the split
     max_subjects: int = 1               # floor for the subject axis
     gt_max_length: int = 1              # floor for the fixation axis
@@ -80,6 +100,10 @@ class TaskAdapter:
                 np.asarray(rec["Y"], np.float32),
                 np.asarray(rec["T"], np.float32))
 
+    def extras(self, rec) -> dict:
+        """Per-record conditioning tensors / labels."""
+        return {}
+
 
 class OSIETask(TaskAdapter):
     """Free viewing; no conditioning (reference OSIE/dataset/dataset.py:18-114)."""
@@ -101,15 +125,111 @@ class OSIETask(TaskAdapter):
         return self.origin
 
 
-TASKS = {"osie": OSIETask}
+def _answered_right(rec) -> bool:
+    """An AiR subject's answer correctness (reference
+    AiR/dataset/dataset.py:149)."""
+    return (rec["subject_answer"] == rec["answer"]
+            and rec["subject_answer"] != "faild")
+
+
+class AiRTask(TaskAdapter):
+    """VQA: machine-attention map + answer correctness
+    (reference AiR/dataset/dataset.py:20-210)."""
+
+    name = "air"
+
+    def load_records(self, split):
+        with open(join(self.cfg.fix_dir, f"AiR_fixations_{split}.json")) as f:
+            return json.load(f)
+
+    def group_key(self, rec):
+        return rec["question_id"]
+
+    def image_path(self, rec):
+        return join(self.cfg.img_dir, rec["image_id"])
+
+    def origin_hw(self, rec):
+        return rec["height"], rec["width"]
+
+    def xyd_ms(self, rec):
+        dur = (np.asarray(rec["T_end"], np.float32)
+               - np.asarray(rec["T_start"], np.float32))
+        return (np.asarray(rec["X"], np.float32),
+                np.asarray(rec["Y"], np.float32), dur)
+
+    def extras(self, rec):
+        att = np.load(join(self.cfg.att_dir,
+                           rec["question_id"] + ".npy")).astype(np.float32)
+        att = resize_map(att, self.cfg.action_map)
+        att = att / att.max()
+        return {"attention_map": att[..., None],  # [mh, mw, 1] NHWC
+                "performance": np.bool_(_answered_right(rec)),
+                "question_id": rec["question_id"]}
+
+
+class COCOTask(TaskAdapter):
+    """Visual search: detector-bbox attention + 18 categories
+    (reference COCO_Search18/dataset/dataset.py:24-212)."""
+
+    name = "coco"
+    origin = (320, 512)
+
+    def __init__(self, cfg: DataConfig):
+        super().__init__(cfg)
+        self.name2int = {n: i for i, n in enumerate(COCO_OBJECT_NAMES)}
+        det_file = join(cfg.att_dir or cfg.fix_dir,
+                        "coco_search18_detector.json")
+        self.imgs_2_det: dict[str, list] = {}
+        if os.path.exists(det_file):
+            with open(det_file) as f:
+                detector = json.load(f)
+            for det in detector:
+                if (det["category"] in self.name2int
+                        and det["score"] >= cfg.detector_threshold):
+                    self.imgs_2_det.setdefault(det["image_id"], []).append(det)
+
+    def load_records(self, split):
+        fn = f"coco_search18_fixations_TP_{split}_{self.cfg.coco_split}.json"
+        with open(join(self.cfg.fix_dir, fn)) as f:
+            return json.load(f)
+
+    def group_key(self, rec):
+        return (rec["task"], rec["name"])
+
+    def image_path(self, rec):
+        return join(self.cfg.img_dir, rec["task"], rec["name"])
+
+    def origin_hw(self, rec):
+        return self.origin
+
+    def extras(self, rec):
+        image_id = rec["name"].split(".")[0]
+        # the union of the target category's detector boxes in the
+        # recorded origin frame, then an antialiased resize to the action
+        # map (reference COCO dataset.py:150-160)
+        det_h = rec.get("det_height", self.origin[0])
+        det_w = rec.get("det_width", self.origin[1])
+        att = np.zeros((det_h, det_w), np.float32)
+        for det in self.imgs_2_det.get(image_id, []):
+            if det["category"] == rec["task"]:
+                x0, y0, x1, y1 = (int(det["bbox"][0]), int(det["bbox"][1]),
+                                  int(det["bbox"][2]), int(det["bbox"][3]))
+                att[y0:y1, x0:x1] = 1.0
+        att = resize_map(att, self.cfg.action_map)
+        att = att / (att.max() + EPSILON)
+        return {"attention_map": att[..., None],
+                "task": np.int32(self.name2int[rec["task"]]),
+                "task_name": rec["task"]}
+
+
+TASKS = {"osie": OSIETask, "air": AiRTask, "coco": COCOTask}
 
 
 def make_task(task: str | TaskAdapter, cfg: DataConfig) -> TaskAdapter:
     if isinstance(task, TaskAdapter):
         return task
     if task not in TASKS:
-        raise NotImplementedError(
-            f"task {task!r}: only the OSIE data is ported so far")
+        raise ValueError(f"task {task!r}: one of {sorted(TASKS)}")
     return TASKS[task](cfg)
 
 
@@ -160,11 +280,14 @@ class EvaluationDataset:
         sx, sy = ox / rx, oy / ry
 
         fix_vectors = []
+        performances = []
         for rec in members:
             x, y, dur = self.task.xyd_ms(rec)
             length = rec.get("length", len(x))
             fix_vectors.append(fix_vector(
                 (x / sx)[:length], (y / sy)[:length], (dur / 1000.0)[:length]))
+            if self.task.name == "air":
+                performances.append(_answered_right(rec))
 
         gt_fix, gt_len, gt_mask = pad_fix_vectors(
             fix_vectors, self.pad_gt_len, self.pad_subjects)
@@ -174,6 +297,12 @@ class EvaluationDataset:
             "gt_fix": gt_fix, "gt_len": gt_len, "gt_mask": gt_mask,
             "img_name": os.path.basename(path),
         }
+        out.update(self.task.extras(rec0))
+        if self.task.name == "air":
+            out["performances"] = performances
+            perf_pad = np.zeros(self.pad_subjects, np.float32)
+            perf_pad[:len(performances)] = np.asarray(performances, np.float32)
+            out["gt_performance"] = perf_pad
         return out, path
 
     def __getitem__(self, idx: int) -> dict:
@@ -186,9 +315,13 @@ class EvaluationDataset:
         return collate([self[int(i)] for i in indices])
 
 
-RAGGED_KEYS = ("fix_vectors", "img_name")
+RAGGED_KEYS = ("fix_vectors", "performances", "img_name", "question_id",
+               "task_name")
 
-_PLURAL = {"image": "images", "img_name": "img_names"}
+_PLURAL = {"image": "images", "attention_map": "attention_maps",
+           "img_name": "img_names", "performance": "performances",
+           "task": "tasks", "question_id": "question_ids",
+           "task_name": "task_names"}
 
 
 def collate(samples: list[dict]) -> dict:

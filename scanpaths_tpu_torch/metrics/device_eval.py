@@ -152,14 +152,15 @@ def _human_evaluation_air_device(loader, spec_wd, spec_wod, device):
 
 class DeviceSweep:
     """Accumulates device-computed pair rows across evaluation batches
-    and reproduces ``evaluation(...)``'s aggregation exactly.  (The AiR
-    bucketed variant comes with the AiR forward.)"""
+    and reproduces ``evaluation(...)``'s aggregation exactly, or, fed by
+    :meth:`add_batch_air`, ``evaluation_performance_related(...)``'s."""
 
     def __init__(self, spec_wd: tm.ScanMatchSpec,
                  spec_wod: tm.ScanMatchSpec):
         self.spec_wd = spec_wd
         self.spec_wod = spec_wod
         self._rows: list[np.ndarray] = []      # one [G, 9] per group
+        self._buckets = []                     # air: (all, right, wrong)
         self._overflow = 0                     # truncated rollouts
         self._preds = 0                        # rollouts seen
 
@@ -202,8 +203,32 @@ class DeviceSweep:
         for i in range(rows.shape[0]):
             self._rows.append(rows[i][mask[i]])
 
+    def add_batch_air(self, gt_fix, gt_len, gt_mask, pred_fix, pred_len,
+                      performances, allocated):
+        """AiR bucketed variant: ``performances`` is a ragged list (per
+        image) of subject flags, ``allocated`` the stream flag of these
+        predictions (True for good).  Mirrors
+        evaluation_performance_related's NaN skip and (perf == alloc)
+        bucketing (reference AiR/utils/evaluation.py:188-359)."""
+        rows = self._compute_rows(gt_fix, gt_len, pred_fix, pred_len)
+        mask = torch.as_tensor(gt_mask).cpu().numpy().astype(bool)
+        for i in range(rows.shape[0]):
+            r = rows[i][mask[i]]
+            allr, right, wrong = [], [], []
+            for row, perf in zip(r, performances[i]):
+                if np.any(np.isnan(row)):
+                    continue
+                allr.append(row)
+                if perf and allocated:
+                    right.append(row)
+                elif not perf and not allocated:
+                    wrong.append(row)
+            self._buckets.append((allr, right, wrong))
+
     def result(self):
         """(metrics, stds) with the host suite's exact aggregation."""
+        if self._buckets:
+            return _bucketize(self._buckets)
         sizes = [len(r) for r in self._rows]
         rows = np.concatenate([r for r in self._rows if len(r)], axis=0)
         return _summarize(rows, sizes)

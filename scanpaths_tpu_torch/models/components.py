@@ -1,7 +1,8 @@
 """Decoder building blocks (port of ``scanpaths_tpu/models/components.py``):
 the hoisted x-gates, the fused ConvLSTM cell with factorized task-signal
-gates, the history attentions, the prediction head, the OSIE
-conditioner and the exact conditioner+head composition.
+gates, the history attentions, the prediction head, the task
+conditioners (OSIE's single conv, AiR's dual streams, COCO's per-category
+bank) and the exact conditioner+head composition.
 
 Parameters are held in torch layouts (``nn.Conv2d`` OIHW, ``nn.Linear``
 [out, in]) under the JAX package's names; activations are NHWC at every
@@ -228,17 +229,40 @@ class PredictHead(nn.Module):
 
 
 class Conditioner(nn.Module):
-    """The OSIE task conditioner: one 5x5 C->C conv ahead of the head
-    (the reference's ``performance_sal_layer``).  AiR's dual and COCO's
-    bank modes are not ported yet."""
+    """The task-conditioned 5x5 C->C conv ahead of the shared head:
 
-    def __init__(self, embed: int = 512):
+    * ``single`` (OSIE): one conv, the reference's ``performance_sal_layer``;
+    * ``dual`` (AiR): the right- and wrong-answer convs
+      (``performance_sal_layer.{True,False}``), one per stream;
+    * ``bank`` (COCO): one conv per search-target category, held as one
+      HWIO kernel [K, 5, 5, C, C] and bias [K, C] and picked per sample
+      by task id (the reference's ``object_sal_layer.<category>``).
+    """
+
+    def __init__(self, mode: str = "single", embed: int = 512,
+                 num_heads: int = 18):
         super().__init__()
-        self.sal_layer = nn.Conv2d(embed, embed, 5, padding=2)
+        self.mode = mode
+        if mode == "single":
+            self.sal_layer = nn.Conv2d(embed, embed, 5, padding=2)
+        elif mode == "dual":
+            self.sal_layer_true = nn.Conv2d(embed, embed, 5, padding=2)
+            self.sal_layer_false = nn.Conv2d(embed, embed, 5, padding=2)
+        elif mode == "bank":
+            self.bank_kernel = nn.Parameter(
+                torch.empty(num_heads, 5, 5, embed, embed))
+            self.bank_bias = nn.Parameter(torch.zeros(num_heads, embed))
+        else:
+            raise ValueError(f"conditioner mode {mode!r}")
 
     def kernels(self):
-        """[(kernel HWIO, bias)] per stream — the fusion inputs."""
-        return [hwio(self.sal_layer)]
+        """[(kernel HWIO, bias)] per stream — the fusion inputs; stream
+        order good, then poor, for ``dual``; the whole bank for ``bank``."""
+        if self.mode == "single":
+            return [hwio(self.sal_layer)]
+        if self.mode == "dual":
+            return [hwio(self.sal_layer_true), hwio(self.sal_layer_false)]
+        return [(self.bank_kernel, self.bank_bias)]
 
 
 # ---------------------------------------------------------------------------
@@ -321,18 +345,58 @@ def fuse_cond_head(k1, b1, head_raw: dict, map_h: int, map_w: int) -> dict:
             "wcc": wcc, "b1map": b1map, "bd": kdb[0]}
 
 
+def fuse_bank_heads(bank_k, bank_b, task_ids, head_raw: dict, map_h: int,
+                    map_w: int) -> dict:
+    """The composed conditioner+head of each sample's bank entry: every
+    field of :func:`fuse_cond_head` with a leading [N] axis.  Only the
+    entries whose ids occur in ``task_ids`` [N] are composed, once each
+    (the same values as composing all K entries and gathering)."""
+    ids, inv = torch.unique(task_ids, return_inverse=True)
+    ids = ids.tolist()
+    if ids[0] < 0 or ids[-1] >= bank_k.shape[0]:
+        raise ValueError(f"task ids {ids} outside the bank of "
+                         f"{bank_k.shape[0]} heads")
+    parts = [fuse_cond_head(bank_k[i], bank_b[i], head_raw, map_h, map_w)
+             for i in ids]
+    return {key: torch.stack([p[key] for p in parts])[inv]
+            for key in parts[0]}
+
+
+def _sample_conv(x, kernel, strides=(1, 1), padding=((0, 0), (0, 0)),
+                 dtype=None):
+    """:func:`conv2d` with one HWIO kernel per sample (``kernel`` [N, kh,
+    kw, C, O]), no bias: one grouped conv with the batch folded into the
+    channels (groups = N)."""
+    n, hh, ww, c = x.shape
+    o = kernel.shape[-1]
+    if dtype is not None:
+        x, kernel = x.to(dtype), kernel.to(dtype)
+    (pt, pb), (pl, pr) = padding
+    xin = F.pad(x.permute(0, 3, 1, 2).reshape(1, n * c, hh, ww),
+                (pl, pr, pt, pb))
+    k = kernel.permute(0, 4, 3, 1, 2).reshape(n * o, c, *kernel.shape[1:3])
+    out = F.conv2d(xin, k, stride=strides, groups=n)
+    return out.reshape(n, o, *out.shape[2:]).permute(0, 2, 3, 1)
+
+
 def apply_fused_cond_head(h, fused: dict, dtype):
     """Apply the composed conditioner+head to the ConvLSTM state ``h``
-    [N, H, W, C].  Returns (stop_logit [N, 1], amap [N, H, W], drt_raw
-    [N, h5, w5]) in float32 (float64 when ``h`` is), drt_raw being the
-    pre-relu drt_layer_1 output for :meth:`PredictHead.finish_duration`."""
+    [N, H, W, C]: one :func:`fuse_cond_head` dict for the whole batch, or
+    one per sample with a leading [N] axis on every field
+    (:func:`fuse_bank_heads`).  Returns (stop_logit [N, 1], amap [N, H,
+    W], drt_raw [N, h5, w5]) in float32 (float64 when ``h`` is), drt_raw
+    being the pre-relu drt_layer_1 output for
+    :meth:`PredictHead.finish_duration`."""
     n = h.shape[0]
     hi_t = torch.promote_types(torch.float32, h.dtype)
     hc = h.to(dtype)
-    sa = conv2d(hc, fused["k_sa"], padding=((2, 2), (2, 2)), dtype=dtype)
-    sa = sa.to(hi_t) + fused["b_sa"]
-    main = conv2d(hc, fused["keff"], strides=(5, 5),
-                  padding=((4, 2), (4, 2)), dtype=dtype)[..., 0].to(hi_t)
+    per_sample = fused["k_sa"].dim() == 5
+    conv = _sample_conv if per_sample else conv2d
+    ns = "n" if per_sample else ""
+    sa = conv(hc, fused["k_sa"], padding=((2, 2), (2, 2)), dtype=dtype)
+    sa = sa.to(hi_t) + fused["b_sa"][..., None, None, :]
+    main = conv(hc, fused["keff"], strides=(5, 5),
+                padding=((4, 2), (4, 2)), dtype=dtype)[..., 0].to(hi_t)
     stop_logit = sa[..., 0].reshape(n, -1).mean(dim=-1, keepdim=True)
     amap = F.relu(sa[..., 1])
     # the corrections run on thin border strips, in full precision: the
@@ -341,11 +405,11 @@ def apply_fused_cond_head(h, fused: dict, dtype):
     # einsum each
     h32 = h.to(hi_t)
     rows = F.pad(h32[:, :2], (0, 0, 4, 2)).unfold(2, 11, 5)  # [N,2,w5,C,11]
-    crow = torch.einsum("nyjcq,yqc->nj", rows, fused["wr"].to(hi_t))
+    crow = torch.einsum(f"nyjcq,{ns}yqc->nj", rows, fused["wr"].to(hi_t))
     cols = F.pad(h32[:, :, :2], (0, 0, 0, 0, 4, 2)).unfold(1, 11, 5)
-    ccol = torch.einsum("nixcp,pxc->ni", cols, fused["wc"].to(hi_t))
-    ccorn = torch.einsum("nyxc,yxc->n", h32[:, :2, :2], fused["wcc"])
-    d = main + fused["b1map"][None] + fused["bd"]
+    ccol = torch.einsum(f"nixcp,{ns}pxc->ni", cols, fused["wc"].to(hi_t))
+    ccorn = torch.einsum(f"nyxc,{ns}yxc->n", h32[:, :2, :2], fused["wcc"])
+    d = main + fused["b1map"] + fused["bd"][..., None, None]
     d[:, 0, :] -= crow
     d[:, :, 0] -= ccol
     d[:, 0, 0] += ccorn

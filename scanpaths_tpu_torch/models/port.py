@@ -1,4 +1,4 @@
-"""Weights carried into the port's :class:`ScanpathModel` (OSIE).
+"""Weights carried into the port's :class:`ScanpathModel` (every task).
 
 * :func:`load_reference_state_dict` — a state dict in the reference's
   torch layout (the reference's own checkpoints, or what
@@ -9,7 +9,19 @@
   of numpy arrays) -> the port's state dict, through the reference
   layout: HWIO -> OIHW, Dense [in, out] -> Linear [out, in].
 
-Both return a dict for ``ScanpathModel.load_state_dict``.
+Both return a dict for ``ScanpathModel.load_state_dict``;
+:func:`to_reference_state_dict` goes back to the reference layout.  The
+task-specific names (reference AiR/COCO variants):
+
+  reference                              port (ScanpathModel)
+  -------------------------------------  ------------------------------
+  lstm.{input,forget,output}             lstm.gates_s0 (OSIE, COCO)
+  lstm.{input,forget,output}_pos         lstm.gates_s0 (AiR, good stream)
+  lstm.{input,forget,output}_neg         lstm.gates_s1 (AiR, poor stream)
+  performance_sal_layer                  conditioner.sal_layer (OSIE)
+  performance_sal_layer.{True,False}     conditioner.sal_layer_{true,false}
+  object_sal_layer.<category>            conditioner.bank_{kernel,bias}[k],
+                                         k in COCO_OBJECT_NAMES order
 """
 
 from __future__ import annotations
@@ -17,18 +29,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..data.datasets import COCO_OBJECT_NAMES
+
 GATES_XH = ("input", "forget", "output", "memory")   # fused order i,f,o,g
 GATES_S = ("input", "forget", "output")              # fused order i,f,o
 _STAGE_INDEX = {"4": 1, "5": 2, "6": 3, "7": 4}      # resnet.<i> -> layer
 _HEAD = ("sal_layer_2", "sal_layer_3", "drt_layer_1", "drt_layer_2")
+# the reference's signal-gate suffixes, one per stream (gates_s0, gates_s1)
+_SIGNAL_SUFFIXES = {"osie": ("",), "air": ("_pos", "_neg"), "coco": ("",)}
+_DUAL = (("true", "True"), ("false", "False"))
+
+
+def _check_task(task: str) -> None:
+    if task not in _SIGNAL_SUFFIXES:
+        raise ValueError(f"task {task!r}: one of {sorted(_SIGNAL_SUFFIXES)}")
 
 
 def load_reference_state_dict(sd: dict, task: str = "osie") -> dict:
     """Reference-layout state dict (a bare state dict or a
     ``{"model": state_dict, ...}`` checkpoint, optional ``module.``
-    prefixes) -> the port's ``ScanpathModel`` state dict."""
-    if task != "osie":
-        raise NotImplementedError(f"task {task!r}: only OSIE is ported")
+    prefixes) -> the port's ``ScanpathModel(task)`` state dict."""
+    _check_task(task)
     sd = sd.get("model", sd)
     sd = {k.removeprefix("module."): (v if isinstance(v, torch.Tensor)
                                       else torch.tensor(np.array(v)))
@@ -66,7 +87,8 @@ def load_reference_state_dict(sd: dict, task: str = "osie") -> dict:
     copy("sal_conv", "sal_conv")
     stack("xgates.gates_x", [f"lstm.{g}_x" for g in GATES_XH])
     stack("lstm.gates_h", [f"lstm.{g}_h" for g in GATES_XH])
-    stack("lstm.gates_s0", [f"lstm.{g}" for g in GATES_S])
+    for i, suffix in enumerate(_SIGNAL_SUFFIXES[task]):
+        stack(f"lstm.gates_s{i}", [f"lstm.{g}{suffix}" for g in GATES_S])
     copy("semantic_embed", "semantic_embed")
     copy("spatial_embed", "spatial_embed")
     copy("semantic_att.lists", "semantic_att.semantic_lists")
@@ -79,17 +101,30 @@ def load_reference_state_dict(sd: dict, task: str = "osie") -> dict:
     copy("spatial_att.att", "spatial_att.spatial_attention")
     out["spatial_att.att.weight"] = out["spatial_att.att.weight"].reshape(
         1, -1)
-    copy("conditioner.sal_layer", "performance_sal_layer")
+    if task == "osie":
+        copy("conditioner.sal_layer", "performance_sal_layer")
+    elif task == "air":
+        for ours, ref in _DUAL:
+            copy(f"conditioner.sal_layer_{ours}",
+                 f"performance_sal_layer.{ref}")
+    else:
+        out["conditioner.bank_kernel"] = torch.stack(
+            [sd[f"object_sal_layer.{c}.weight"].permute(2, 3, 1, 0)
+             for c in COCO_OBJECT_NAMES])
+        out["conditioner.bank_bias"] = torch.stack(
+            [sd[f"object_sal_layer.{c}.bias"] for c in COCO_OBJECT_NAMES])
     for name in _HEAD:
         copy(f"head.{name}", f"object_head.{name}")
     return out
 
 
-def to_reference_state_dict(sd: dict, map_h: int, map_w: int) -> dict:
-    """The port's ``ScanpathModel`` state dict -> the reference's torch
-    layout, the inverse of :func:`load_reference_state_dict` (the fused
-    gate convs split back per gate, the spatial scoring Linear back to
-    its (map_h, map_w) conv)."""
+def to_reference_state_dict(sd: dict, task: str, map_h: int,
+                            map_w: int) -> dict:
+    """The port's ``ScanpathModel(task)`` state dict -> the reference's
+    torch layout, the inverse of :func:`load_reference_state_dict` (the
+    fused gate convs split back per gate, the spatial scoring Linear back
+    to its (map_h, map_w) conv)."""
+    _check_task(task)
     stage_child = {v: k for k, v in _STAGE_INDEX.items()}
     out: dict[str, torch.Tensor] = {}
     for key, v in sd.items():
@@ -119,7 +154,8 @@ def to_reference_state_dict(sd: dict, map_h: int, map_w: int) -> dict:
     copy("sal_conv", "sal_conv")
     split("xgates.gates_x", [f"lstm.{g}_x" for g in GATES_XH])
     split("lstm.gates_h", [f"lstm.{g}_h" for g in GATES_XH])
-    split("lstm.gates_s0", [f"lstm.{g}" for g in GATES_S])
+    for i, suffix in enumerate(_SIGNAL_SUFFIXES[task]):
+        split(f"lstm.gates_s{i}", [f"lstm.{g}{suffix}" for g in GATES_S])
     copy("semantic_embed", "semantic_embed")
     copy("spatial_embed", "spatial_embed")
     copy("semantic_att.lists", "semantic_att.semantic_lists")
@@ -131,16 +167,27 @@ def to_reference_state_dict(sd: dict, map_h: int, map_w: int) -> dict:
     out["spatial_att.spatial_attention.weight"] = \
         out["spatial_att.spatial_attention.weight"].reshape(
             1, 1, map_h, map_w)
-    copy("conditioner.sal_layer", "performance_sal_layer")
+    if task == "osie":
+        copy("conditioner.sal_layer", "performance_sal_layer")
+    elif task == "air":
+        for ours, ref in _DUAL:
+            copy(f"conditioner.sal_layer_{ours}",
+                 f"performance_sal_layer.{ref}")
+    else:
+        for k, c in enumerate(COCO_OBJECT_NAMES):
+            out[f"object_sal_layer.{c}.weight"] = \
+                sd["conditioner.bank_kernel"][k].permute(3, 2, 0, 1)
+            out[f"object_sal_layer.{c}.bias"] = sd["conditioner.bank_bias"][k]
     for name in _HEAD:
         copy(f"head.{name}", f"object_head.{name}")
     return {k: v.detach().clone() for k, v in out.items()}
 
 
-def _flax_to_reference(params: dict, batch_stats: dict, map_h: int,
-                       map_w: int) -> dict:
-    """The JAX OSIE model's flax trees -> reference-layout numpy state
-    dict, at any map geometry."""
+def _flax_to_reference(params: dict, batch_stats: dict, task: str,
+                       map_h: int, map_w: int) -> dict:
+    """The JAX model's flax trees of ``task`` -> reference-layout numpy
+    state dict, at any map geometry."""
+    _check_task(task)
     sd: dict[str, np.ndarray] = {}
     a = np.asarray
 
@@ -187,7 +234,8 @@ def _flax_to_reference(params: dict, batch_stats: dict, map_h: int,
 
     split_gates(params["xgates"]["gates_x"], GATES_XH, "_x")
     split_gates(params["lstm"]["gates_h"], GATES_XH, "_h")
-    split_gates(params["lstm"]["gates_s0"], GATES_S, "")
+    for i, suffix in enumerate(_SIGNAL_SUFFIXES[task]):
+        split_gates(params["lstm"][f"gates_s{i}"], GATES_S, suffix)
     lin("semantic_embed", params["semantic_embed"])
     lin("spatial_embed", params["spatial_embed"])
     for ours, ref in (("lists", "semantic_lists"), ("cur", "semantic_cur"),
@@ -199,7 +247,17 @@ def _flax_to_reference(params: dict, batch_stats: dict, map_h: int,
     sd["spatial_att.spatial_attention.weight"] = \
         a(att["kernel"]).T.reshape(1, 1, map_h, map_w)
     sd["spatial_att.spatial_attention.bias"] = a(att["bias"])
-    conv("performance_sal_layer", params["conditioner"]["sal_layer"])
+    cond = params["conditioner"]
+    if task == "osie":
+        conv("performance_sal_layer", cond["sal_layer"])
+    elif task == "air":
+        for ours, ref in _DUAL:
+            conv(f"performance_sal_layer.{ref}", cond[f"sal_layer_{ours}"])
+    else:
+        for k, c in enumerate(COCO_OBJECT_NAMES):
+            sd[f"object_sal_layer.{c}.weight"] = np.transpose(
+                a(cond["bank_kernel"][k]), (3, 2, 0, 1))
+            sd[f"object_sal_layer.{c}.bias"] = a(cond["bank_bias"][k])
     for name in _HEAD:
         conv(f"object_head.{name}", params["head"][name])
     return sd
@@ -208,8 +266,7 @@ def _flax_to_reference(params: dict, batch_stats: dict, map_h: int,
 def from_jax_params(params: dict, batch_stats: dict, task: str = "osie",
                     map_h: int = 30, map_w: int = 40) -> dict:
     """The JAX package's (params, batch_stats) flax trees, as nested
-    dicts of numpy arrays -> the port's ``ScanpathModel`` state dict."""
-    if task != "osie":
-        raise NotImplementedError(f"task {task!r}: only OSIE is ported")
+    dicts of numpy arrays -> the port's ``ScanpathModel(task)`` state
+    dict."""
     return load_reference_state_dict(
-        _flax_to_reference(params, batch_stats, map_h, map_w), task)
+        _flax_to_reference(params, batch_stats, task, map_h, map_w), task)

@@ -58,16 +58,30 @@ class Predictor:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(args.seed)
 
-    def forward(self, images: np.ndarray) -> dict:
-        """NHWC float32 images [N, height, width, 3] -> the eval output
-        dict, on the device."""
-        return self.model(torch.from_numpy(images).to(self.device))
+    def forward(self, images: np.ndarray, attention_maps=None,
+                task_ids=None) -> dict:
+        """NHWC float32 images [N, height, width, 3], attention maps
+        [N, map_h, map_w, 1] (AiR, COCO; zeroed under
+        ``--ablate_attention_info``) and task ids [N] (COCO), as numpy
+        arrays -> the eval output dict, on the device."""
+        if attention_maps is not None and self.args.ablate_attention_info:
+            attention_maps = np.zeros_like(attention_maps)
 
-    def decode(self, out: dict, decode: str, num_samples: int) -> SampleOut:
+        def dev(a):
+            return None if a is None else torch.from_numpy(
+                np.asarray(a)).to(self.device)
+        return self.model(dev(images), dev(attention_maps), dev(task_ids))
+
+    def decode(self, out: dict, decode: str, num_samples: int,
+               stream: str | None = None) -> SampleOut:
         """Greedy (one scanpath per image) or ``num_samples`` sampled
-        scanpaths per image; every leaf leads with the [R] rollout axis."""
-        probs = out["all_actions_prob"]
-        mu, sigma2 = out["log_normal_mu"], out["log_normal_sigma2"]
+        scanpaths per image, from the outputs of ``stream`` (the AiR
+        ``good``/``poor`` prefix; None for one-stream tasks); every leaf
+        leads with the [R] rollout axis."""
+        pre = f"{stream}_" if stream else ""
+        probs = out[pre + "all_actions_prob"]
+        mu = out[pre + "log_normal_mu"]
+        sigma2 = out[pre + "log_normal_sigma2"]
         if decode == "greedy":
             s = greedy_sample(probs, mu, sigma2, self.grid)
             return SampleOut(*(v[None] for v in s))

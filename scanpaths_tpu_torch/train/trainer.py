@@ -22,9 +22,13 @@ from ..utils.logger import Logger, task_log_level
 
 
 def data_config(args) -> DataConfig:
+    att_dir = args.att_dir if args.task == "air" else args.detector_dir
     return DataConfig(
-        img_dir=args.img_dir, fix_dir=args.fix_dir,
-        resize=(args.height, args.width), cache_images=args.cache_images,
+        img_dir=args.img_dir, fix_dir=args.fix_dir, att_dir=att_dir,
+        action_map=(args.map_height, args.map_width),
+        resize=(args.height, args.width),
+        detector_threshold=args.detector_threshold,
+        coco_split=args.coco_split, cache_images=args.cache_images,
         packed_cache_dir=args.packed_cache_dir or None)
 
 
@@ -85,12 +89,21 @@ class Evaluator:
         run_args = type(args)(**{**vars(args), "evaluation_dir": log_dir})
         self.predictor = Predictor(run_args, self.device)
 
-    def decode_batch_device(self, batch, repeat_num: int):
-        """Eval forward + ``repeat_num`` stochastic decodes of one host
-        batch; returns the batch's GT as device tensors (``gt_fix``,
-        ``gt_len``, ``gt_mask``) and the samples ([R, N, ...] leaves,
-        on the device), which the device sweep consumes as they are."""
+    def decode_batch_device(self, batch, repeat_num: int,
+                            streams=(None,)):
+        """One eval forward of a host batch (with its attention maps and
+        task ids), then
+        ``repeat_num`` stochastic decodes of each stream in ``streams``
+        (``"good"``/``"poor"`` read the AiR outputs of that prefix; the
+        eval forward is deterministic, so both streams come from one
+        forward).  Returns the batch's GT as device tensors (``gt_fix``,
+        ``gt_len``, ``gt_mask``) and the samples of each stream ([R, N,
+        ...] leaves, on the device), which the device sweep consumes as
+        they are."""
         db = {k: torch.as_tensor(batch[k], device=self.device)
               for k in ("gt_fix", "gt_len", "gt_mask")}
-        out = self.predictor.forward(batch["images"])
-        return db, self.predictor.decode(out, "sample", repeat_num)
+        out = self.predictor.forward(batch["images"],
+                                     batch.get("attention_maps"),
+                                     batch.get("tasks"))
+        return db, [self.predictor.decode(out, "sample", repeat_num, stream)
+                    for stream in streams]

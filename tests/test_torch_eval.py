@@ -270,7 +270,8 @@ def test_cli_test_runs_on_cpu(tmp_path, rng):
     model = ScanpathModel("osie", **GEOM)
     from scanpaths_tpu_torch.models.scanpath_model import init_weights
     init_weights(model, 0)
-    torch.save(port.to_reference_state_dict(model.state_dict(), 10, 12),
+    torch.save(port.to_reference_state_dict(model.state_dict(), "osie", 10,
+                                            12),
                run / "checkpoints" / "checkpoint_best.pth")
     argv = FLAGS + ["--img_dir", img_dir, "--fix_dir", fix_dir,
                     "--evaluation_dir", str(run), "--eval_repeat_num", "2",
@@ -293,9 +294,62 @@ def test_cli_test_runs_on_cpu(tmp_path, rng):
         assert all(0 <= x <= 96 for x in r["X"])
         assert all(0 <= y <= 80 for y in r["Y"])
     assert "human performance" in log
-    with pytest.raises(NotImplementedError, match="only osie"):
-        tcli.main(["--task", "air", "--evaluation_dir", str(run),
+    with pytest.raises(NotImplementedError, match="joint"):
+        tcli.main(["--task", "joint", "--evaluation_dir", str(run),
                    "--device", "cpu"])
+
+
+def _drop_with_duration(tree):
+    """The metric tree without its with-duration ScanMatch entries."""
+    return {k: (_drop_with_duration(v) if isinstance(v, dict) else v)
+            for k, v in tree.items() if k != "with duration"}
+
+
+@pytest.mark.parametrize("task", ["air", "coco"])
+def test_cli_test_runs_air_and_coco_on_cpu(task, tmp_path, rng):
+    """``cli.test --device cpu`` for AiR (test split, both streams, the
+    answer-correctness buckets) and COCO (validation split): the output
+    file, the records' extra fields, and the device sweep's tree against
+    the host suite's on the same samples."""
+    from test_torch_tasks import write_task_split
+    from scanpaths_tpu_torch.models.scanpath_model import init_weights
+    data = write_task_split(task, tmp_path, rng)
+    run = tmp_path / "run"
+    (run / "checkpoints").mkdir(parents=True)
+    model = ScanpathModel(task, **GEOM)
+    init_weights(model, 0)
+    torch.save(port.to_reference_state_dict(model.state_dict(), task, 10,
+                                            12),
+               run / "checkpoints" / "checkpoint_best.pth")
+    argv = data + FLAGS[2:] + ["--evaluation_dir", str(run),
+                               "--eval_repeat_num", "2", "--device", "cpu"]
+    got = tcli.main(argv + ["--device_eval", "true"])
+    out = "test" if task == "air" else "validation"
+    recs = json.loads((run / f"{out}_predicts.json").read_text())
+    log = (run / "log_test.txt").read_text()
+    want = tcli.main(argv + ["--device_eval", "false"])
+    if task == "air":
+        assert set(got) == {"all", "right_answer", "wrong_answer"}
+    if "table overflow" in log:
+        # seed weights sample huge LogNormal durations: the with-duration
+        # column of a truncated rollout differs by design
+        want, got = _drop_with_duration(want), _drop_with_duration(got)
+    _assert_tree(want, got)
+    streams = 2 if task == "air" else 1
+    assert len(recs) == 3 * 2 * streams
+    extra = {"qid", "performance"} if task == "air" else {"task"}
+    for r in recs:
+        assert set(r) == {"img_names", "repeat_id", "X", "Y", "T",
+                          "length"} | extra
+        assert r["repeat_id"] in (1, 2) and 0 <= r["length"] <= 4
+        assert len(r["X"]) == len(r["Y"]) == len(r["T"]) == r["length"]
+    if task == "air":
+        # one batch's records: good stream, then poor, repeat-major
+        assert [r["performance"] for r in recs[:8]] == [True] * 4 + \
+            [False] * 4
+        assert recs[0]["qid"] == "q00000"
+    else:
+        assert recs[0]["task"] == "bottle"
 
 
 def test_reference_layout_exporter_round_trip():
@@ -308,9 +362,10 @@ def test_reference_layout_exporter_round_trip():
     rng = np.random.default_rng(6)
     vs = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(
         np.float32), shapes)
-    want = port._flax_to_reference(vs["params"], vs["batch_stats"], 10, 12)
+    want = port._flax_to_reference(vs["params"], vs["batch_stats"], "osie",
+                                   10, 12)
     sd = port.from_jax_params(vs["params"], vs["batch_stats"], "osie", 10, 12)
-    got = port.to_reference_state_dict(sd, 10, 12)
+    got = port.to_reference_state_dict(sd, "osie", 10, 12)
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)

@@ -24,6 +24,10 @@ TINY = ["--task", "osie", "--map_height", "10", "--map_width", "10",
 KEYS = {"name", "repeat_id", "X", "Y", "T", "length"}
 
 
+def _flags(task):
+    return ["--task", task] + TINY[2:]
+
+
 def _images(tmp_path, n=3):
     rng = np.random.default_rng(0)
     d = tmp_path / "images"
@@ -34,21 +38,27 @@ def _images(tmp_path, n=3):
     return str(d)
 
 
-def _run_dirs(tmp_path):
+def _run_dirs(tmp_path, task="osie"):
     """One set of weights, saved as the JAX CLI reads them (flax
     msgpack) and as the port reads them (reference-layout torch)."""
-    args = parse_opt(TINY)
+    args = parse_opt(_flags(task))
     model = build_model(args)
+    kw = {}
+    if task != "osie":
+        kw["attention_maps"] = np.zeros((1, 10, 10, 1), np.float32)
+    if task == "coco":
+        kw["task_ids"] = np.zeros((1,), np.int32)
     vs = model.init(jax.random.PRNGKey(0),
-                    np.zeros((1, 80, 80, 3), np.float32), train=False)
+                    np.zeros((1, 80, 80, 3), np.float32), train=False, **kw)
     run = tmp_path / "run"
     (run / "checkpoints").mkdir(parents=True)
-    (run / "hparams.json").write_text(json.dumps({"task": "osie"}))
+    (run / "hparams.json").write_text(json.dumps({"task": task}))
     save_pytree(str(run / "checkpoints" / "checkpoint_best.msgpack"),
                 {"model": {"params": vs["params"],
                            "batch_stats": vs["batch_stats"]}})
     tree = jax.tree.map(np.array, vs)
-    sd = port._flax_to_reference(tree["params"], tree["batch_stats"], 10, 10)
+    sd = port._flax_to_reference(tree["params"], tree["batch_stats"], task,
+                                 10, 10)
     torch.save({"model": {k: torch.from_numpy(np.ascontiguousarray(v))
                           for k, v in sd.items()}},
                run / "checkpoints" / "checkpoint_best.pth")
@@ -56,9 +66,32 @@ def _run_dirs(tmp_path):
 
 
 def test_greedy_matches_the_jax_cli(tmp_path):
+    _check_greedy_against_the_jax_cli(tmp_path, "osie")
+
+
+@pytest.mark.parametrize("task", ["air", "coco"])
+def test_greedy_matches_the_jax_cli_for_air_and_coco(tmp_path, task):
+    """AiR from seeded attention maps (served by its good stream), COCO
+    with a target category per image, so two bank heads share a
+    batch."""
+    _check_greedy_against_the_jax_cli(tmp_path, task)
+
+
+def _check_greedy_against_the_jax_cli(tmp_path, task):
+    """The same greedy scanpaths as the JAX CLI from the same weights."""
     imgs = _images(tmp_path)
-    run = _run_dirs(tmp_path)
-    common = TINY + ["--predict_images", imgs, "--evaluation_dir", run]
+    run = _run_dirs(tmp_path, task)
+    common = _flags(task) + ["--predict_images", imgs, "--evaluation_dir",
+                             run]
+    if task == "air":
+        rng = np.random.default_rng(1)
+        maps = []
+        for i in range(3):
+            maps.append(str(tmp_path / f"att_{i}.npy"))
+            np.save(maps[-1], rng.uniform(0, 1, (15, 20)).astype(np.float32))
+        common += ["--predict_att", ",".join(maps)]
+    elif task == "coco":
+        common += ["--target_category", "cup,tv,cup"]
     want = jax_predict.main(common + ["--predict_out",
                                       str(tmp_path / "jax.json")])
     got = predict.main(common + ["--device", "cpu", "--predict_out",
@@ -98,6 +131,25 @@ def test_device_and_checkpoint_checks(tmp_path):
     with pytest.raises(FileNotFoundError, match="checkpoint_best.pth"):
         predict.main(argv + ["--device", "cpu", "--evaluation_dir",
                              str(tmp_path)])
-    with pytest.raises(ValueError, match="only osie"):
-        predict.main(["--task", "air", "--device", "cpu",
+    with pytest.raises(NotImplementedError, match="joint"):
+        predict.main(["--task", "joint", "--device", "cpu",
                       "--predict_images", imgs])
+    with pytest.raises(ValueError, match="--target_category is required"):
+        predict.main(["--task", "coco", "--device", "cpu",
+                      "--predict_images", imgs])
+
+
+def test_ablated_attention_serves_as_no_maps(tmp_path):
+    """--ablate_attention_info zeroes the AiR attention maps: the same
+    scanpaths as serving without --predict_att."""
+    imgs = _images(tmp_path, 2)
+    att = str(tmp_path / "att.npy")
+    np.save(att, np.random.default_rng(2).uniform(0, 1, (15, 20)).astype(
+        np.float32))
+    argv = _flags("air") + ["--predict_images", imgs, "--device", "cpu",
+                            "--seed", "5"]
+    want = predict.main(argv)
+    got = predict.main(argv + ["--predict_att", f"{att},{att}",
+                               "--ablate_attention_info", "true"])
+    assert got == want
+    assert predict.main(argv + ["--predict_att", f"{att},{att}"]) != want

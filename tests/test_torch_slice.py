@@ -262,7 +262,8 @@ def test_reference_state_dict_round_trip():
         np.float32), shapes)
     want = export_reference_state_dict(vs["params"], vs["batch_stats"],
                                        "osie")
-    got = port._flax_to_reference(vs["params"], vs["batch_stats"], 30, 40)
+    got = port._flax_to_reference(vs["params"], vs["batch_stats"], "osie",
+                                  30, 40)
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
