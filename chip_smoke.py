@@ -18,7 +18,8 @@ Phases, each reporting on its own lines and with its wall time:
    TEST_SUBJECTS) and
    COCO-Search18 (validation split, 32 trials of 320x512 over four
    target categories, 10 subjects each, detector boxes above and below
-   the 0.8 threshold); 3-20 fixations of 100-800 ms a subject;
+   the 0.8 threshold); 3-20 fixations of 100-800 ms a subject; the same
+   records also form each task's train split;
 4. kernels: each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at edge ones (pixel counts off the
    128-pixel tile, column counts off the tile widths, dilation 2, two
@@ -56,7 +57,23 @@ Phases, each reporting on its own lines and with its wall time:
    host suite on the first batch's human baseline and first two repeats
    of each stream (rtol 2e-4, atol 2e-5; the rollouts' durations capped
    on both sides, see compare_with_host);
-7. prints the kernels' JSON line, then {"ok": true, "device": ...} as
+7. training, for each task, at full width in float32 from seed weights
+   (the duration head's last conv scaled by 0.01, see _train_model):
+   three supervised steps at batch 16 on one batch of the train split
+   (the loss must fall), three SCST steps at batch 4 with 5 rollouts
+   (per stream for AiR), each with its ScanMatch reward grids on the NW
+   kernel; for OSIE also two supervised steps in bfloat16 compute with
+   float32 parameters; then profiles one more step of each kind.
+   Checks that the cell and stage wrappers refuse a gradient on the
+   card, every loss and metric finite, the launch
+   counts (no cell or stage launch; 2 NW launches per SCST step and
+   stream), every NW call of the SCST steps against the plain NW
+   exactly, and one OSIE supervised step at batch 2 on the card against
+   the same step on the CPU (loss and gradient norm, rtol 1e-3).  Prints
+   the step times, images/s, the reward grids' share of the SCST step
+   and the NW time inside it, NW ms a call at the reward's shapes, and
+   the peak memory allocated per phase;
+8. prints the kernels' JSON line, then {"ok": true, "device": ...} as
    the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -67,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -97,6 +115,10 @@ TEST_SUBJECTS = {"osie": 15, "air": 15, "coco": 10}
 SERVE_TARGETS = ("cup", "tv", "car")
 SPLIT_TARGETS = ("bottle", "chair", "laptop", "sink")
 PRED_DURATION_CAP = 0.8  # s, the split's longest fixation; 16 x 16 symbols
+# the training phase: steps of each kind per task, and the batch and
+# relative tolerance of the card-against-CPU supervised step
+TRAIN_STEPS = 3
+PARITY_BATCH, PARITY_RTOL = 2, 1e-3
 
 # Published H100 SXM peaks (dense): float32 on the CUDA cores, bf16 on
 # the tensor cores, HBM bandwidth.  A kernel's bound is the larger of
@@ -544,7 +566,7 @@ def _union_ms(spans):
     return busy
 
 
-def profile_forward(fn, label):
+def profile_call(fn, label):
     """One call of fn() under torch.profiler after a warm-up: the device
     busy time (the union of the kernels' and copies' intervals), the span
     between CUDA events around the call, the idle share, the cell
@@ -579,7 +601,7 @@ def profile_forward(fn, label):
     busy = _union_ms([iv for ivs in streams.values() for iv in ivs])
     total = sum(times.values())
     if total == 0.0:
-        print(f"[profile] forward {label}: the trace holds no device time",
+        print(f"[profile] {label}: the trace holds no device time",
               flush=True)
         return
     per_stream = {sid: _union_ms(ivs) for sid, ivs in streams.items()}
@@ -587,7 +609,7 @@ def profile_forward(fn, label):
     across = sum(per_stream.values()) - busy
     cell_ms = sum(v for k, v in times.items() if "cell_" in k)
     top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
-    print(f"[profile] forward {label}: device busy {busy:.2f} ms of a "
+    print(f"[profile] {label}: device busy {busy:.2f} ms of a "
           f"{span:.2f} ms span ({100 * (1 - busy / span):.1f}% idle); kernel "
           f"time summed {total:.2f} ms on {len(streams)} stream(s) ("
           + ", ".join(f"id {sid}: {len(streams[sid])} events, "
@@ -710,7 +732,7 @@ def compare_forward(cell, block, predictor_mod, task):
                 _close(f"{task} forward {k} at scale {COMPARE_SCALE}",
                        out_k[k], out_p[k], F32_TOL, scaled=True)
         ms, plain_ms = _pair_ms(kern, ref, 3)
-        profile_forward(kern, f"{task} N={BATCH} half={half}")
+        profile_call(kern, f"forward {task} N={BATCH} half={half}")
         print(f"[slice] {task} forward N={BATCH} 240x320 T={SEQ} half={half}: "
               f"{ms:.2f} ms with kernels, {plain_ms:.2f} ms plain; "
               f"outputs max abs err at input scale {COMPARE_SCALE}"
@@ -807,11 +829,13 @@ def write_test_split(tmp, task):
               os.path.join(run_dir, "checkpoints")):
         os.makedirs(d)
     recs, dets = _write_records(task, rng, img_dir, att_dir)
-    fn = {"osie": "osie_fixations_test.json",
-          "air": "AiR_fixations_test.json",
-          "coco": "coco_search18_fixations_TP_validation_split1.json"}[task]
-    with open(os.path.join(fix_dir, fn), "w") as f:
-        json.dump(recs, f)
+    # the same records serve as the train split (phase 7)
+    for split in ("train", "validation" if task == "coco" else "test"):
+        fn = {"osie": f"osie_fixations_{split}.json",
+              "air": f"AiR_fixations_{split}.json",
+              "coco": f"coco_search18_fixations_TP_{split}_split1.json"}[task]
+        with open(os.path.join(fix_dir, fn), "w") as f:
+            json.dump(recs, f)
     if task == "coco":
         with open(os.path.join(att_dir, "coco_search18_detector.json"),
                   "w") as f:
@@ -932,6 +956,33 @@ def nw_shapes(tm, batch, specs, task):
             for label, spec in zip(("w/ duration", "w/o duration"), specs)]
 
 
+def nw_call_stats(nw, args, iters=200):
+    """One NW call ``nw.nw_scores_bins(*args)`` timed: {"ms" (CUDA events
+    over ``iters`` calls, in turns with the plain version), "plain_ms",
+    "bound_ms", "bound_by", "shape", "text" (the printed account: the
+    kernel's device time in a profiler trace, the wrapper's host time,
+    the bound and the DP cells)}."""
+    ms, plain_ms = _pair_ms(lambda: nw.nw_scores_bins(*args),
+                            lambda: nw.nw_scores_bins_plain(*args), iters, 3)
+    dev_ms, host_ms = _device_and_host_ms(lambda: nw.nw_scores_bins(*args),
+                                          "nw_kernel", iters)
+    sa, na, sb, nb = args[3:]
+    b, ta = sa.shape
+    tb = sb.shape[1]
+    cells = int((na.clamp(0, ta).long() * nb.clamp(0, tb).long()).sum())
+    bound_ms, bound_by = _bound(NW_OPS_PER_CELL * cells,
+                                4 * (b * (ta + tb) + 3 * b),
+                                PEAK_FLOPS[torch.float32])
+    text = (f"{ms:.4f} ms a call (kernel on the device "
+            + ("not in the trace" if dev_ms is None else f"{dev_ms:.4f} ms")
+            + f", host {host_ms:.4f} ms; plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.5f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% "
+            f"of bound: {cells} DP cells; the longest row chain is "
+            f"{int(na.max())} rows)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, shape=f"B={b} Ta={ta} Tb={tb}", text=text)
+
+
 def check_nw(nw, tm, firsts):
     """The NW kernel against its plain version, exactly, and timed at
     every shape each task's test driver launches it (``nw_shapes``;
@@ -952,33 +1003,16 @@ def check_nw(nw, tm, firsts):
             want = nw.nw_scores_bins_plain(*args)
             torch.cuda.synchronize()
             err = _exact(f"nw {task} {label}", got, want)
-            ms, plain_ms = _pair_ms(lambda: nw.nw_scores_bins(*args),
-                                    lambda: nw.nw_scores_bins_plain(*args),
-                                    200, 3)
-            per_run += runs * ms
+            st = nw_call_stats(nw, args)
+            per_run += runs * st["ms"]
             launches += runs
-            dev_ms, host_ms = _device_and_host_ms(
-                lambda: nw.nw_scores_bins(*args), "nw_kernel", 200)
-            b, ta = sa.shape
-            tb = sb.shape[1]
-            cells = int((na.clamp(0, ta).long() * nb.clamp(0, tb).long())
-                        .sum())
-            bound_ms, bound_by = _bound(NW_OPS_PER_CELL * cells,
-                                        4 * (b * (ta + tb) + 3 * b),
-                                        PEAK_FLOPS[torch.float32])
-            print(f"[kernels] nw {task} {label} B={b} Ta={ta} Tb={tb}: "
-                  f"max_abs_err {err}, NaN {int(torch.isnan(got).sum())}, "
-                  f"{ms:.4f} ms a call (kernel on the device "
-                  + ("not in the trace" if dev_ms is None
-                     else f"{dev_ms:.4f} ms")
-                  + f", host {host_ms:.4f} ms; plain {plain_ms:.3f} ms, bound "
-                  f"{bound_ms:.5f} ms by {bound_by}, "
-                  f"{100 * bound_ms / ms:.1f}% of bound: {cells} DP cells; "
-                  f"the longest row chain is {int(na.max())} rows); {runs} "
-                  "launches per test run", flush=True)
+            print(f"[kernels] nw {task} {label} {st['shape']}: max_abs_err "
+                  f"{err}, NaN {int(torch.isnan(got).sum())}, {st['text']}; "
+                  f"{runs} launches per test run", flush=True)
             if summary is None:
-                summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
+                summary = dict(max_abs_err=err, **{
+                    k: st[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")})
         print(f"[kernels] nw {task} ms per test run: {per_run:.4f} ms over "
               f"{launches} launches", flush=True)
         summary[f"{task}_ms_per_test_run"] = per_run
@@ -1200,6 +1234,330 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+def _train_args(argv):
+    """The flags of a task's training run: the test split's (geometry,
+    --batch 16, --seed 0) with the training defaults of core/config.py
+    (lr 1e-4, clip 12.5, rl_sample_number 5, warmup 1 of 10 epochs, RL
+    from epoch 5)."""
+    import argparse
+
+    from scanpaths_tpu_torch.core.config import parse_opt
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device")
+    return parse_opt(pre.parse_known_args(argv)[1])
+
+
+def _train_model(args, dtype=torch.float32):
+    """A full-width model of the run's task from seed 0, on the CPU, with
+    two convs scaled.  The duration head's last conv by 0.01, as the JAX
+    package's own SCST test does
+    (tests/test_train.py::test_rl_step_improves_reward): the seed head's
+    LogNormal scale overflows float32 in the sampler, and an infinite
+    rollout duration has no log-density.  sal_conv (weight and bias) by
+    COMPARE_SCALE, which scales the decoder's visual features: at unit
+    scale the seed decoder saturates (|h| grows by one a step) and two
+    summation orders end far apart (check_train_parity compares two).  A
+    train-mode BN undoes an input scale, so the features are scaled, not
+    the images."""
+    from scanpaths_tpu_torch.models.scanpath_model import (ScanpathModel,
+                                                           init_weights)
+    layers = tuple(int(v) for v in str(args.backbone_layers).split(","))
+    model = ScanpathModel(args.task, embed=args.embed,
+                          seq_len=args.max_length, map_h=args.map_height,
+                          map_w=args.map_width, backbone_layers=layers,
+                          dtype=dtype)
+    init_weights(model, args.seed)
+    with torch.no_grad():
+        model.head.drt_layer_2.weight.mul_(0.01)
+        model.sal_conv.weight.mul_(COMPARE_SCALE)
+        model.sal_conv.bias.mul_(COMPARE_SCALE)
+    return model
+
+
+@contextlib.contextmanager
+def _timed_calls(module, name, calls, keep_args=False):
+    """Wraps ``module.name``: each call is bracketed by CUDA events and
+    recorded in ``calls`` as (start, end, args cloned or None, result
+    cloned or None)."""
+    real = getattr(module, name)
+
+    def call(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        calls.append((start, end,
+                      [a.clone() if torch.is_tensor(a) else a for a in args]
+                      if keep_args else None,
+                      out.clone() if keep_args else None))
+        return out
+    with mock.patch.object(module, name, call):
+        yield calls
+
+
+def _event_ms(calls):
+    return sum(start.elapsed_time(end) for start, end, *_ in calls)
+
+
+def _finite(task, label, metrics):
+    values = {k: float(v) for k, v in metrics.items()}
+    bad = {k: v for k, v in values.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{task} {label}: non-finite metrics {bad}")
+    return values
+
+
+def _mib(nbytes):
+    return nbytes / 2 ** 20
+
+
+def check_grad_refusal(cell, block):
+    """The cell and stage kernels define no backward: on the card, under
+    grad mode, each wrapper raises for any input that requires grad,
+    before it launches anything."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = (("cell_step", cell.cell_step,
+              _cell_inputs(1, 4, 5, 64, 1, torch.float32, gen)),
+             ("stage_apply", lambda **kw: block.stage_apply(dil=1, **kw),
+              _stage_inputs(1, 4, 5, 64, 32, 1, torch.float32, gen)))
+    for name, fn, args in cases:
+        for k in args:
+            kw = dict(args, **{k: args[k].clone().requires_grad_(True)})
+            try:
+                fn(**kw)
+            except RuntimeError as e:
+                if f"{name} has no backward" in str(e):
+                    continue
+                raise
+            raise AssertionError(f"{name} ran under grad mode with {k} "
+                                 "requiring grad")
+    print("[train] cell_step and stage_apply raise on the card under grad "
+          "mode for each input that requires grad", flush=True)
+
+
+def run_train_slice(cell, block, nw, argv):
+    """The training phase of one task at full width on the card: three
+    supervised steps at --batch on one batch of the synthetic train split
+    (SupervisedDataset), then three SCST steps at --batch / 4 with
+    --rl_sample_number rollouts (EvaluationDataset batches, as the JAX
+    trainer feeds them), and for OSIE two bfloat16 supervised steps.  The
+    kernels' launch counts are zeroed before the steps and read after
+    them: the supervised steps launch none (the cell and stage kernels
+    have no backward), each SCST step launches the NW kernel twice per
+    stream (its ScanMatch reward grids w/ and w/o duration).  Then one
+    more step of each kind is profiled, every NW call of the timed SCST
+    steps is held to the plain NW on the same inputs exactly, and timed
+    at its shape.  Returns (the launch counts, the NW ms per SCST step,
+    the first supervised batch)."""
+    from scanpaths_tpu_torch.data.datasets import (EvaluationDataset, Loader,
+                                                   SupervisedDataset)
+    from scanpaths_tpu_torch.train import steps, trainer
+    args = _train_args(argv)
+    task = args.task
+    cfg = trainer.data_config(args)
+    sup_loader = Loader(SupervisedDataset(task, cfg, "train"),
+                        batch_size=args.batch, shuffle=True, seed=args.seed,
+                        drop_last=True)
+    rl_loader = Loader(EvaluationDataset(task, cfg, "train"),
+                       batch_size=max(args.batch // 4, 1), shuffle=True,
+                       seed=args.seed + 1, drop_last=True)
+    rl_ds = rl_loader.dataset
+    rl_cfg = steps.RLConfig(
+        task=task, grid=trainer.grid_spec(args),
+        rl_sample_number=args.rl_sample_number,
+        max_symbols_wd=int(np.ceil(max(rl_ds.wd_symbols_needed, 256) / 64)
+                           * 64),
+        max_symbols_wod=rl_ds.pad_gt_len,
+        apply_cd=args.apply_consistency_divergence, lambda_5=args.lambda_5)
+    # the first steps of a run, as the trainer takes them: the warmup
+    # multiplier is 0 at step 0 (a step moves nothing), then rises by
+    # 1 / len(sup_loader) a step.  From fresh moments at the full lr, two
+    # sign-like Adam steps along one gradient overshoot the repeated
+    # batch (the loss went 7.67, 7.50, 14.39 in a run on an H100).
+    start = 1
+    sup_batch = next(iter(sup_loader))
+    rl_batches = list(itertools.islice(rl_loader, TRAIN_STEPS))
+    streams = 2 if task == "air" else 1
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    cell.cell_launches = block.block_launches = nw.nw_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.TrainState.create(_train_model(args), args,
+                                    len(sup_loader), len(rl_loader),
+                                    step=start, device="cuda")
+    db = steps.device_batch(sup_batch, "cuda", for_rl=False)
+    sup_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = _finite(task, "supervised step",
+                    steps.supervised_step(state, db, args.lambda_1))
+        sup_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(m)
+    sup_peak = torch.cuda.max_memory_allocated()
+    n_sup, n_rl = args.batch, max(args.batch // 4, 1)
+    steady = sum(sup_ms[1:]) / (len(sup_ms) - 1)
+    print(f"[train] {task} supervised step, batch {n_sup}, float32: "
+          + ", ".join(f"{v:.1f}" for v in sup_ms)
+          + f" ms (steps 2-{TRAIN_STEPS}: {steady:.1f} ms, "
+          f"{1e3 * n_sup / steady:.1f} images/s); loss "
+          + ", ".join(f"{m['loss']:.4f} ({m['loss_actions']:.4f} + "
+                      f"{m['loss_duration']:.4f})" for m in losses)
+          + " (actions + duration) on the repeated batch; grad norm "
+          + ", ".join(f"{m['grad_norm']:.4g}" for m in losses)
+          + f"; peak allocated {_mib(sup_peak):.0f} MiB", flush=True)
+    if not losses[-1]["loss"] < losses[0]["loss"]:
+        raise AssertionError(f"{task}: the supervised loss did not fall on a "
+                             f"repeated batch: {[m['loss'] for m in losses]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    rl_ms, reward_ms, nw_ms, rl_metrics, nw_calls = [], [], [], [], []
+    for b in rl_batches:
+        rdb = steps.device_batch(b, "cuda", for_rl=True)
+        grids, calls = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _timed_calls(steps, "_pair_grids", grids), \
+                _timed_calls(steps, "_gtpairs_cd_target", grids), \
+                _timed_calls(nw, "nw_scores_bins", calls, keep_args=True):
+            m = steps.rl_step(state, rdb, rl_cfg, generator=gen)
+            rl_metrics.append(_finite(task, "SCST step", m))
+        rl_ms.append(1e3 * (time.perf_counter() - t0))
+        reward_ms.append(_event_ms(grids))
+        nw_ms.append(_event_ms(calls))
+        nw_calls.append(calls)
+    rl_peak = torch.cuda.max_memory_allocated()
+
+    bf16 = None
+    if task == "osie":
+        # the bf16 step (the first call of a dtype autotunes cuDNN: a
+        # second step gives its steady time)
+        torch.cuda.reset_peak_memory_stats()
+        model = _train_model(args, torch.bfloat16)
+        half = steps.TrainState.create(model, args, len(sup_loader),
+                                       len(rl_loader), step=start,
+                                       device="cuda")
+        before = model.sal_conv.weight.detach().clone()
+        bf16 = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = _finite(task, "bf16 supervised step",
+                        steps.supervised_step(half, db, args.lambda_1))
+            bf16.append((1e3 * (time.perf_counter() - t0), m))
+        bf16_peak = torch.cuda.max_memory_allocated()
+        if not all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+                   for p in model.parameters()) or \
+                torch.equal(model.sal_conv.weight, before):
+            raise AssertionError("osie bf16 supervised step: the float32 "
+                                 "parameters did not move or are not finite")
+        del half, model
+    got = {"cell_step": cell.cell_launches,
+           "stage_apply": block.block_launches,
+           "nw_scores_bins": nw.nw_launches}
+    want = {"cell_step": 0, "stage_apply": 0,
+            "nw_scores_bins": TRAIN_STEPS * streams * 2
+            + (TRAIN_STEPS * 2 if rl_cfg.apply_cd else 0)}
+    if got != want:
+        raise AssertionError(f"{task} training: launches {got}, expected "
+                             f"{want}")
+    # where a step's time goes (each after one more warm step)
+    profile_call(lambda: steps.supervised_step(state, db, args.lambda_1),
+                 f"{task} supervised step, batch {args.batch}, float32")
+    rdb = steps.device_batch(rl_batches[-1], "cuda", for_rl=True)
+    profile_call(lambda: steps.rl_step(state, rdb, rl_cfg, generator=gen),
+                 f"{task} SCST step, batch {max(args.batch // 4, 1)}, "
+                 "float32")
+    del state
+    torch.cuda.empty_cache()
+
+    steady_rl = sum(rl_ms[1:]) / (len(rl_ms) - 1)
+    print(f"[train] {task} SCST step, batch {n_rl} x "
+          f"{rl_cfg.rl_sample_number} rollouts"
+          + (" per stream" if streams == 2 else "") + ", float32: "
+          + ", ".join(f"{v:.1f}" for v in rl_ms)
+          + f" ms (steps 2-{TRAIN_STEPS}: {steady_rl:.1f} ms, "
+          f"{1e3 * n_rl / steady_rl:.2f} images/s); reward grids "
+          + ", ".join(f"{v:.1f}" for v in reward_ms)
+          + " ms (" + ", ".join(f"{100 * r / s:.1f}%"
+                                for r, s in zip(reward_ms, rl_ms))
+          + " of the step), NW inside them "
+          + ", ".join(f"{v:.3f}" for v in nw_ms)
+          + f" ms over {len(nw_calls[0])} launches a step; rl_loss "
+          + ", ".join(f"{m['rl_loss']:.4g}" for m in rl_metrics)
+          + "; " + ", ".join(f"{k} {v:.4g}" for k, v in rl_metrics[-1].items()
+                             if k not in ("rl_loss",))
+          + f"; peak allocated {_mib(rl_peak):.0f} MiB", flush=True)
+    if bf16:
+        print(f"[train] {task} supervised step, batch {n_sup}, bfloat16 "
+              "compute with float32 parameters, first call and second: "
+              + ", ".join(f"{ms:.1f}" for ms, _ in bf16) + " ms; loss "
+              + ", ".join(f"{m['loss']:.4f}" for _, m in bf16)
+              + ", grad norm " + ", ".join(f"{m['grad_norm']:.4g}"
+                                           for _, m in bf16)
+              + f"; peak allocated {_mib(bf16_peak):.0f} MiB", flush=True)
+
+    # every NW call of the SCST steps against the plain NW, exactly
+    for i, calls in enumerate(nw_calls):
+        for j, (_, _, a, out) in enumerate(calls):
+            _exact(f"{task} SCST step {i + 1} NW call {j + 1}", out,
+                   nw.nw_scores_bins_plain(*a))
+    torch.cuda.synchronize()
+    per_step = 0.0
+    for j, (_, _, a, _) in enumerate(nw_calls[-1]):
+        # the reward grids run w/ duration, then w/o, for each stream
+        label = ("good ", "poor ")[j // 2] if streams == 2 else ""
+        label += ("w/ duration", "w/o duration")[j % 2] if j < 2 * streams \
+            else "CD target"
+        st = nw_call_stats(nw, a)
+        per_step += st["ms"]
+        print(f"[train] nw {task} SCST reward {label} {st['shape']}: "
+              f"{st['text']}", flush=True)
+    print(f"[train] {task} SCST reward grids of {TRAIN_STEPS} steps: "
+          f"{sum(len(c) for c in nw_calls)} NW calls held to the plain NW "
+          f"exactly (max abs err 0, NaN in the same places); NW "
+          f"{per_step:.4f} ms a step at these shapes", flush=True)
+    return got, per_step, sup_batch
+
+
+def check_train_parity(argv, batch):
+    """One supervised step at batch PARITY_BATCH, full width, on the card
+    and on the CPU from the same weights (_train_model's) and the same
+    samples: the loss, its two terms and the global gradient norm within
+    PARITY_RTOL."""
+    from scanpaths_tpu_torch.train import steps
+    args = _train_args(argv)
+    small = {k: v[:PARITY_BATCH] for k, v in batch.items()
+             if k in steps.SUPERVISED_KEYS}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        state = steps.TrainState.create(_train_model(args), args, 1, 1,
+                                        step=1, device=dev)
+        t0 = time.perf_counter()
+        m = steps.supervised_step(state, steps.device_batch(small, dev,
+                                                            for_rl=False),
+                                  args.lambda_1)
+        got[dev] = (_finite(args.task, f"supervised step on {dev}", m),
+                    time.perf_counter() - t0)
+        del state
+    (cpu, cpu_s), (gpu, gpu_s) = got["cpu"], got["cuda"]
+    rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    print(f"[train] {args.task} supervised step at batch {PARITY_BATCH}, "
+          f"card against CPU: "
+          + ", ".join(f"{k} {gpu[k]:.6g} vs {cpu[k]:.6g} (rel {rel[k]:.2g})"
+                      for k in cpu)
+          + f"; rtol {PARITY_RTOL}; CPU step {cpu_s:.1f} s, card step "
+          f"{gpu_s:.2f} s (first call)", flush=True)
+    bad = {k: v for k, v in rel.items() if not v <= PARITY_RTOL}
+    if bad:
+        raise AssertionError(f"supervised step card vs CPU: {bad}")
+
+
 def print_ptxas(log):
     """One line per compiled kernel from ptxas -v: its name with template
     arguments, registers, spills and shared memory."""
@@ -1281,6 +1639,17 @@ def main():
             add(run_test_slice(cell, block, nw, test_cli, device_eval, heval,
                                test_argv[task], *firsts[task]))
             _phase(f"test slice {task}", t0)
+
+        check_grad_refusal(cell, block)
+        for task in TASKS:
+            t0 = time.perf_counter()
+            counts, per_step, sup_batch = run_train_slice(cell, block, nw,
+                                                          test_argv[task])
+            add(counts)
+            summary["nw_scores_bins"][f"{task}_ms_per_rl_step"] = per_step
+            if task == "osie":
+                check_train_parity(test_argv[task], sup_batch)
+            _phase(f"training {task}", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),

@@ -1,6 +1,5 @@
-"""The evaluation split's data: fixation JSON -> numpy batches (port of
-``scanpaths_tpu/data/datasets.py``, eval view), with one task adapter
-per plugin:
+"""Task data: fixation JSON -> numpy batches (port of
+``scanpaths_tpu/data/datasets.py``), with one task adapter per plugin:
 
 * ``osie`` — free viewing (reference OSIE/dataset/dataset.py);
 * ``air`` — VQA: a machine-attention map per question and the subjects'
@@ -9,18 +8,21 @@ per plugin:
   boxes as the attention map, and the category id (reference
   COCO_Search18/dataset/dataset.py).
 
+:class:`SupervisedDataset` gives one training sample per subject: the
+image, the soft target scanpath [T, H*W+1] (:func:`tensorize_scanpath`),
+durations and masks, plus the task's conditioning.
 :class:`EvaluationDataset` groups the records per image and carries all
 subjects' ground truth, both as ragged host lists (``fix_vectors``, for
 the host metric suite) and as padded arrays (``gt_fix`` [S, L, 3] with
 durations in seconds, ``gt_len`` [S], ``gt_mask`` [S], for the device
-sweep).  The pad sizes come from the split, so no ground truth is cut:
-the subject axis is the largest group, the fixation axis the longest
-scanpath.  :class:`Loader` batches it in order in one process.
+sweep and the SCST reward, which reads it over the train split).  The
+pad sizes come from the split, so no ground truth is cut: the subject
+axis is the largest group, the fixation axis the longest scanpath.
+:class:`Loader` batches either, in order or in a seeded shuffle.
 
-The config holds only what the evaluation splits read.  The supervised
-view waits for the training slice; the packed image store and the
-native gather of the JAX package are not carried over
-(``packed_cache_dir`` raises).
+Batches are assembled in numpy (the JAX package's native C++ batch
+assembly and packed image store are not carried over:
+``packed_cache_dir`` raises).
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ class DataConfig:
     att_dir: str | None = None          # AiR attention maps / COCO detector dir
     action_map: tuple[int, int] = (30, 40)
     resize: tuple[int, int] = (240, 320)
+    max_length: int = 16
+    blur_sigma: float | None = None
     detector_threshold: float = 0.8     # COCO (reference COCO opts.py:15)
     coco_split: str = "split1"
     # floors for the pad sizes derived from the split
@@ -59,6 +63,56 @@ class DataConfig:
     gt_max_length: int = 1              # floor for the fixation axis
     cache_images: bool = True
     packed_cache_dir: str | None = None  # not ported: raises if set
+
+
+def tensorize_scanpath(pos_x, pos_y, duration_ms, origin_hw, cfg: DataConfig,
+                       clamp_to_grid: bool = False):
+    """Ground-truth scanpath -> (target [T, H*W+1], duration [T],
+    action_mask [T], duration_mask [T]): grid cells by integer division,
+    ms -> s, a one-hot (optionally Gaussian-blurred) target per fixation,
+    STOP one-hot at index 0 after the last, and the extra STOP-supervision
+    step in ``action_mask`` (reference OSIE/dataset/dataset.py:68-102;
+    the coordinate clamping of the COCO variant, COCO dataset.py:98-100,
+    when ``clamp_to_grid``)."""
+    mh, mw = cfg.action_map
+    t_max = cfg.max_length
+    oy, ox = origin_hw
+    down_x = ox / mw
+    down_y = oy / mh
+
+    pos_x = np.asarray(pos_x, np.float32).copy()
+    pos_y = np.asarray(pos_y, np.float32).copy()
+    duration_ms = np.asarray(duration_ms, np.float32)
+    if clamp_to_grid:
+        pos_x[pos_x >= mw * down_x] = mw * down_x - 1
+        pos_y[pos_y >= mh * down_y] = mh * down_y - 1
+
+    target = np.zeros((t_max, mh * mw + 1), np.float32)
+    duration = np.zeros(t_max, np.float32)
+    action_mask = np.zeros(t_max, np.float32)
+    duration_mask = np.zeros(t_max, np.float32)
+
+    n = min(len(pos_x), t_max)
+    xd = (pos_x[:n] / down_x).astype(np.int32)
+    yd = (pos_y[:n] / down_y).astype(np.int32)
+    duration[:n] = duration_ms[:n] / 1000.0
+    action_mask[:n] = 1
+    duration_mask[:n] = 1
+    if n <= t_max - 1:
+        action_mask[n] = 1  # extra STOP-supervision step
+
+    for i in range(t_max):
+        if i >= n:
+            target[i, 0] = 1.0
+        else:
+            grid = np.zeros((mh, mw), np.float32)
+            grid[yd[i], xd[i]] = 1.0
+            if cfg.blur_sigma:
+                import scipy.ndimage as filters
+                grid = filters.gaussian_filter(grid, cfg.blur_sigma)
+                grid /= grid.sum()
+            target[i, 1:] = grid.reshape(-1)
+    return target, duration, action_mask, duration_mask
 
 
 class _ImageCache:
@@ -103,6 +157,9 @@ class TaskAdapter:
     def extras(self, rec) -> dict:
         """Per-record conditioning tensors / labels."""
         return {}
+
+    def clamp_to_grid(self) -> bool:
+        return False
 
 
 class OSIETask(TaskAdapter):
@@ -202,6 +259,9 @@ class COCOTask(TaskAdapter):
     def origin_hw(self, rec):
         return self.origin
 
+    def clamp_to_grid(self):
+        return True
+
     def extras(self, rec):
         image_id = rec["name"].split(".")[0]
         # the union of the target category's detector boxes in the
@@ -233,14 +293,57 @@ def make_task(task: str | TaskAdapter, cfg: DataConfig) -> TaskAdapter:
     return TASKS[task](cfg)
 
 
+def _check_config(cfg: DataConfig) -> None:
+    if cfg.packed_cache_dir:
+        raise NotImplementedError(
+            "packed_cache_dir: the packed image store is not ported")
+
+
+class SupervisedDataset:
+    """Per-subject supervised samples."""
+
+    def __init__(self, task: str | TaskAdapter, cfg: DataConfig,
+                 split: str = "train"):
+        _check_config(cfg)
+        self.cfg = cfg
+        self.task = make_task(task, cfg)
+        self.records = self.task.load_records(split)
+        self._images = _ImageCache(cfg.cache_images)
+
+    def __len__(self):
+        return len(self.records)
+
+    def __getitem__(self, idx: int) -> dict:
+        rec = self.records[idx]
+        x, y, dur = self.task.xyd_ms(rec)
+        target, duration, amask, dmask = tensorize_scanpath(
+            x, y, dur, self.task.origin_hw(rec), self.cfg,
+            clamp_to_grid=self.task.clamp_to_grid())
+        out = {
+            "image": self._images.load(self.task.image_path(rec),
+                                       self.cfg.resize),
+            "target_scanpath": target,
+            "duration": duration,
+            "action_mask": amask,
+            "duration_mask": dmask,
+            "img_name": os.path.basename(self.task.image_path(rec)),
+        }
+        out.update(self.task.extras(rec))
+        return out
+
+    def get_batch(self, indices) -> dict:
+        """``collate([self[i] for i in indices])``: ``images``,
+        ``scanpaths``, ``durations``, ``action_masks``,
+        ``duration_masks``, ``img_names`` and the task's fields."""
+        return collate([self[int(i)] for i in indices])
+
+
 class EvaluationDataset:
     """Per-group samples with all subjects' ground truth."""
 
     def __init__(self, task: str | TaskAdapter, cfg: DataConfig,
                  split: str = "validation"):
-        if cfg.packed_cache_dir:
-            raise NotImplementedError(
-                "packed_cache_dir: the packed image store is not ported")
+        _check_config(cfg)
         self.cfg = cfg
         self.task = make_task(task, cfg)
         self.records = self.task.load_records(split)
@@ -318,7 +421,10 @@ class EvaluationDataset:
 RAGGED_KEYS = ("fix_vectors", "performances", "img_name", "question_id",
                "task_name")
 
-_PLURAL = {"image": "images", "attention_map": "attention_maps",
+_PLURAL = {"image": "images", "target_scanpath": "scanpaths",
+           "duration": "durations", "action_mask": "action_masks",
+           "duration_mask": "duration_masks",
+           "attention_map": "attention_maps",
            "img_name": "img_names", "performance": "performances",
            "task": "tasks", "question_id": "question_ids",
            "task_name": "task_names"}
@@ -339,18 +445,49 @@ def collate(samples: list[dict]) -> dict:
 
 
 class Loader:
-    """Batches of an evaluation dataset in order, in one process; the
-    last batch may be partial.  The training slice brings the seeded
-    shuffle of the JAX package's Loader."""
+    """Fixed-size batches of a dataset: in order, or in a shuffle seeded by
+    ``seed`` plus the epoch (each pass over the loader is an epoch),
+    optionally dropping the trailing partial batch.
 
-    def __init__(self, dataset, batch_size: int):
+    Several processes: each passes its ``process_index`` of
+    ``process_count``; all draw the SAME shuffle from the shared seed and
+    each loads its contiguous ``batch_size / process_count`` slice of
+    every full batch (a trailing partial batch is loaded whole by every
+    process).  ``len()`` counts the global batches."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 seed: int = 0, drop_last: bool = False,
+                 process_index: int = 0, process_count: int = 1):
+        if process_count > 1 and batch_size % process_count:
+            raise ValueError(f"batch_size {batch_size} must divide evenly "
+                             f"over {process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.process_index = process_index
+        self.process_count = process_count
+        self.epoch = 0
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
     def __iter__(self):
-        idx = np.arange(len(self.dataset))
-        for start in range(0, len(idx), self.batch_size):
-            yield self.dataset.get_batch(idx[start:start + self.batch_size])
+        n = len(self.dataset)
+        idx = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        self.epoch += 1
+        for start in range(0, n, self.batch_size):
+            batch_idx = idx[start:start + self.batch_size]
+            if self.drop_last and len(batch_idx) < self.batch_size:
+                break
+            if self.process_count > 1 and len(batch_idx) == self.batch_size:
+                per = self.batch_size // self.process_count
+                lo = self.process_index * per
+                batch_idx = batch_idx[lo:lo + per]
+            yield self.dataset.get_batch(batch_idx)

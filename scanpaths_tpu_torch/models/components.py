@@ -105,8 +105,9 @@ class FusedConvLSTMCell(nn.Module):
     c' = f*c + i*g, h' = o*c' (no tanh on c', the reference's quirk).
 
     The x-term arrives hoisted (:class:`XGates`) with the constant biases
-    folded in once per forward (:meth:`fold_bias`); each step is one
-    ``ops.cell.cell_step``."""
+    folded in once per forward (:meth:`fold_bias`); each step of the
+    eval forward is one ``ops.cell.cell_step`` (:meth:`forward`), each
+    step of the training forward one :meth:`step` in stock ops."""
 
     def __init__(self, embed: int = 512, num_signals: int = 1,
                  dtype=torch.float32):
@@ -142,6 +143,29 @@ class FusedConvLSTMCell(nn.Module):
             kh = self.gate_kernel()
         return cell_ops.cell_step(h, c, xg, smaps.contiguous(),
                                   kps.contiguous(), kh)
+
+    def step(self, xg, h, c, signals, weight):
+        """The differentiable step, out of place, in stock ops: the maths
+        of ``ops.cell.cell_step_plain`` (the gate conv and signal taps in
+        the compute dtype, the nonlinearities and state update in float32,
+        h' and c' stored in h's dtype).  ``weight`` is the h-gate kernel
+        OIHW in the compute dtype (``gates_h.weight``, cast once per
+        forward by the caller).  Returns (h', c')."""
+        n, hh, ww, ch = h.shape
+        acc = F.conv2d(h.permute(0, 3, 1, 2), weight, padding=1)
+        acc = acc.permute(0, 2, 3, 1).float()
+        smaps = torch.stack([s for s, _ in signals], dim=-1).to(self.dtype)
+        kps = torch.stack([self._sgate(i).kp(cv)
+                           for i, (_, cv) in enumerate(signals)], dim=1)
+        spad = F.pad(smaps, (0, 0, 1, 1, 1, 1)).float()
+        taps = torch.stack([spad[:, dy:dy + hh, dx:dx + ww]
+                            for dy in range(3) for dx in range(3)], dim=-1)
+        sig = torch.einsum("nyxst,nsto->nyxo", taps, kps.float())
+        pre = acc + xg.float() + F.pad(sig, (0, ch))
+        i, f, o, g = pre.split(ch, dim=-1)
+        c_next = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
+        h_next = torch.sigmoid(o) * c_next
+        return h_next.to(h.dtype), c_next.to(h.dtype)
 
 
 class SemanticAttention(nn.Module):

@@ -11,10 +11,14 @@ The structure is the reference's, not torchvision's:
 * no classifier head.
 
 :class:`DilatedResNet50` holds the parameters under the JAX package's
-names (``conv1``, ``bn1``, ``layer{s}_block{b}``) and its ``forward`` is
-the eval-mode trunk (BN from running statistics).  :func:`fused_forward`
-is the inference path that serving runs: BN folded into the convs, the
-uniform blocks of layers 1-3 through ``ops.block.stage_apply``.
+names (``conv1``, ``bn1``, ``layer{s}_block{b}``).  Its ``forward`` is
+the differentiable trunk in stock ops that the training steps run: BN
+on batch statistics with the running statistics updated (``train``), or
+on the running statistics (the eval and SCST forward), as flax's
+``BatchNorm(momentum=0.9, epsilon=1e-5)`` computes it
+(:func:`batch_norm`).  :func:`fused_forward` is the inference path that
+serving runs: BN folded into the convs, the uniform blocks of layers 1-3
+through ``ops.block.stage_apply``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..ops import block as block_ops
 # (planes, first-block stride, dilation) per stage after the dilation
 # patch — the JAX package's _STAGES table
 _STAGES = ((64, 1, 1), (128, 1, 1), (256, 2, 2), (512, 1, 4))
+BN_MOMENTUM = 0.9      # flax's: running = 0.9 running + 0.1 batch
 
 
 def verify_torchvision_sha(path: str) -> bool:
@@ -72,14 +77,39 @@ class Bottleneck(nn.Module):
                                              bias=False)
             self.downsample_bn = nn.BatchNorm2d(out)
 
-    def forward(self, x):
-        """NCHW in and out."""
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        res = (self.downsample_bn(self.downsample_conv(x))
-               if self.has_downsample else x)
+    def forward(self, x, train: bool = False):
+        """NCHW in and out, in x's dtype (see :func:`batch_norm`)."""
+        out = F.relu(batch_norm(_conv(self.conv1, x), self.bn1, train))
+        out = F.relu(batch_norm(_conv(self.conv2, out), self.bn2, train))
+        out = batch_norm(_conv(self.conv3, out), self.bn3, train)
+        res = (batch_norm(_conv(self.downsample_conv, x), self.downsample_bn,
+                          train) if self.has_downsample else x)
         return F.relu(out + res)
+
+
+def _conv(conv: nn.Conv2d, x):
+    """``conv`` in x's dtype (its float32 weight cast at use)."""
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                    conv.padding, conv.dilation)
+
+
+def batch_norm(x, bn: nn.BatchNorm2d, train: bool):
+    """``bn`` over an NCHW ``x`` as flax's ``BatchNorm(momentum=0.9,
+    epsilon=1e-5)`` computes it: with ``train``, normalised by the batch
+    mean and the BIASED batch variance, and the running statistics
+    updated in place to ``0.9 running + 0.1 batch`` with that biased
+    variance (``nn.BatchNorm2d``'s own update takes the unbiased one);
+    else normalised by the running statistics.  Statistics in float32,
+    the output in x's dtype."""
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                   correction=0)
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
 def _ceil_maxpool(x):
@@ -108,14 +138,19 @@ class DilatedResNet50(nn.Module):
     def block(self, si: int, bi: int) -> Bottleneck:
         return getattr(self, f"layer{si}_block{bi}")
 
-    def forward(self, x):
-        """Eval-mode trunk (call ``.eval()`` first), NHWC in and out."""
-        x = x.permute(0, 3, 1, 2)
-        x = _ceil_maxpool(F.relu(self.bn1(self.conv1(x))))
+    def forward(self, x, train: bool = False, dtype=torch.float32):
+        """The trunk in stock ops, differentiable: NHWC in, NHWC out in
+        ``dtype`` (convs in ``dtype``, float32 weights cast at use).
+        ``train`` normalises by batch statistics and updates the running
+        ones (:func:`batch_norm`); else BN reads the running statistics
+        whatever the module's ``training`` flag."""
+        x = x.to(dtype).permute(0, 3, 1, 2)
+        x = _ceil_maxpool(F.relu(batch_norm(_conv(self.conv1, x), self.bn1,
+                                            train)))
         for si, blocks in enumerate(self.layers, start=1):
             for bi in range(blocks):
-                x = self.block(si, bi)(x)
-        return x.permute(0, 2, 3, 1).contiguous()
+                x = self.block(si, bi)(x, train)
+        return x.permute(0, 2, 3, 1)
 
 
 def _conv_nhwc(x, k, b, stride=1, pad=0, dil=1):

@@ -15,7 +15,11 @@ masked softmax; the step invariants (visual features, their channel
 mean, the x-gates with folded biases, the h-gate kernel and the composed
 conditioner+head kernels) are computed once per forward.  Each step is
 one ``ops.cell.cell_step`` (both AiR streams in one call); the trunk's
-uniform blocks run through ``ops.block.stage_apply``.
+uniform blocks run through ``ops.block.stage_apply``.  That is the eval
+forward (:meth:`ScanpathModel.forward`, no gradients).  The training
+steps differentiate :meth:`ScanpathModel.forward_train`, the same
+decoder in stock ops over the trunk's stock-op forward (the kernels
+define no backward).
 
 Tensors are NHWC.  The forward returns the JAX model's eval outputs:
 ``all_actions_prob`` [N, T, 1 + H*W] (softmaxed, STOP at index 0),
@@ -104,14 +108,16 @@ class ScanpathModel(nn.Module):
         return [fuse_cond_head(k, b, raw, self.map_h, self.map_w)
                 for k, b in self.conditioner.kernels()]
 
-    @torch.no_grad()
-    def forward(self, images, attention_maps=None, task_ids=None):
-        """images: NHWC [N, height, width, 3] float32; attention_maps:
-        [N, H, W, 1] (AiR, COCO; zeros when None); task_ids: [N] int
-        (COCO) -> the eval output dict (see the module docstring)."""
+    def _decode(self, x, attention_maps, task_ids, differentiable: bool):
+        """The decoder from the trunk's grid ``x`` [N, H, W, 2048]: one
+        (z [N, T, A] logits, mu, sigma2 [N, T], amap [N, T, H, W]) per
+        stream, all float32.  Each step's cell is ``ops.cell.cell_step``,
+        or with ``differentiable`` the stock-op
+        ``FusedConvLSTMCell.step``, with the histories then written out
+        of place (each step's attention saved the earlier versions for
+        backward)."""
         dt, t_len = self.dtype, self.seq_len
         mh, mw = self.map_h, self.map_w
-        x = resnet.fused_forward(self.backbone, images, dt)
         n = x.shape[0]
         k, b = hwio(self.sal_conv)
         visual = F.relu(conv2d(x, k, b, padding=((1, 1), (1, 1)), dtype=dt))
@@ -133,7 +139,10 @@ class ScanpathModel(nn.Module):
             hists.append(hist)
 
         xg = self.lstm.fold_bias(self.xgates(visual))
-        kh = self.lstm.gate_kernel()
+        if differentiable:
+            kh = self.lstm.gates_h.weight.to(dt)
+        else:
+            kh = self.lstm.gate_kernel()
         h, c = torch.zeros_like(visual), torch.zeros_like(visual)
         fused = self._fused_heads(task_ids)
         slots = torch.arange(t_len + 1, device=x.device)
@@ -149,7 +158,10 @@ class ScanpathModel(nn.Module):
                 cmem = self.semantic_att(hist["sem"], hist["sem_proj"],
                                          entry["sem"], valid)
                 signals.append((smem.reshape(n, mh, mw), cmem))
-            h, c = self.lstm(xg, h, c, signals, kh)
+            if differentiable:
+                h, c = self.lstm.step(xg, h, c, signals, kh)
+            else:
+                h, c = self.lstm(xg, h, c, signals, kh)
             for s, (fu, hist, out) in enumerate(zip(fused, hists, outs)):
                 stop_logit, amap, d = apply_fused_cond_head(h, fu, dt)
                 mu, sigma2 = self.head.finish_duration(d)
@@ -161,18 +173,66 @@ class ScanpathModel(nn.Module):
                 out["amap"].append(amap)
                 entries[s] = self._new_stream_entry(amap, visual, vismean)
                 for key, v in entries[s].items():
+                    if differentiable:
+                        hist[key] = hist[key].clone()
                     hist[key][:, step + 1] = v
+        return [tuple(torch.stack(out[k], dim=1)
+                      for k in ("z", "mu", "sigma2", "amap"))
+                for out in outs]
 
+    def _eval_outputs(self, outs) -> dict:
+        """The eval output dict (module docstring) of ``_decode``'s
+        streams."""
         result = {}
-        for stream, out in zip(self.streams, outs):
+        for stream, (z, mu, sigma2, amap) in zip(self.streams, outs):
             pre = f"{stream}_" if stream else ""
             result.update({
-                pre + "all_actions_prob": torch.softmax(
-                    torch.stack(out["z"], dim=1), dim=-1),
-                pre + "log_normal_mu": torch.stack(out["mu"], dim=1),
-                pre + "log_normal_sigma2": torch.stack(out["sigma2"], dim=1),
-                pre + "action_map": torch.stack(out["amap"], dim=1).float()})
+                pre + "all_actions_prob": torch.softmax(z, dim=-1),
+                pre + "log_normal_mu": mu, pre + "log_normal_sigma2": sigma2,
+                pre + "action_map": amap.float()})
         return result
+
+    @torch.no_grad()
+    def forward(self, images, attention_maps=None, task_ids=None):
+        """images: NHWC [N, height, width, 3] float32; attention_maps:
+        [N, H, W, 1] (AiR, COCO; zeros when None); task_ids: [N] int
+        (COCO) -> the eval output dict (see the module docstring).  The
+        serving path: no gradients, the trunk BN-folded through
+        ``ops.block.stage_apply`` and each decode step through
+        ``ops.cell.cell_step``."""
+        x = resnet.fused_forward(self.backbone, images, self.dtype)
+        return self._eval_outputs(self._decode(x, attention_maps, task_ids,
+                                               differentiable=False))
+
+    def forward_train(self, images, attention_maps=None, task_ids=None,
+                      performances=None, train: bool = True):
+        """The forward the training steps differentiate, in stock ops
+        (the cell and stage kernels have no backward); the JAX model's
+        ``apply(..., train=train)`` with the XLA cell.
+
+        ``train`` (the supervised step): BN on batch statistics, its
+        running statistics updated; raw logits under ``actions`` with
+        ``log_normal_mu`` / ``log_normal_sigma2`` (OSIE, COCO), and for
+        AiR, which needs ``performances`` [N], the stream each sample's
+        subject answered with (good where true), selected per sample, its
+        logits under ``all_actions_prob`` (the JAX model's key).  Not
+        ``train`` (the SCST forward): BN on the running statistics and
+        the eval output dict of :meth:`forward`, softmaxed."""
+        if train and self.task == "air" and performances is None:
+            raise ValueError("the AiR training forward needs performances")
+        x = self.backbone(images, train=train, dtype=self.dtype)
+        outs = self._decode(x, attention_maps, task_ids, differentiable=True)
+        if not train:
+            return self._eval_outputs(outs)
+        if self.task != "air":
+            z, mu, sigma2, _ = outs[0]
+            return {"actions": z, "log_normal_mu": mu,
+                    "log_normal_sigma2": sigma2}
+        (gz, gmu, gs2, _), (pz, pmu, ps2, _) = outs
+        sel = torch.as_tensor(performances, device=gz.device).bool()
+        return {"all_actions_prob": torch.where(sel[:, None, None], gz, pz),
+                "log_normal_mu": torch.where(sel[:, None], gmu, pmu),
+                "log_normal_sigma2": torch.where(sel[:, None], gs2, ps2)}
 
 
 def init_weights(model: ScanpathModel, seed: int) -> None:

@@ -23,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[2] / "build" / \
     "scanpaths_tpu_torch"
@@ -115,6 +117,18 @@ def check(name: str, err: int) -> None:
         msg_fn.restype = ctypes.c_char_p
         raise RuntimeError(
             f"{name} failed: CUDA error {err} ({msg_fn(err).decode()})")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record a call of kernel wrapper ``name``
+    on ``tensors``: the kernels define no backward, so a call under grad
+    mode with an input that requires grad would give an output detached
+    from the graph (JAX refuses a ``pallas_call`` with no VJP the same
+    way).  The training forward computes these steps with stock ops."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or "
+            "with inputs that do not require grad")
 
 
 def packed(t, pack):

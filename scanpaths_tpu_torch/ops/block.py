@@ -124,11 +124,14 @@ def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
     Returns the stage output [N, H, W, C].  A CPU tensor runs
     :func:`stage_apply_plain`; a CUDA tensor runs ``csrc/block.cu``
     (C % 32 == 0, M % 32 == 0, contiguous and 16-byte aligned) or
-    raises.  The kernel reads the weights transposed (K contiguous): the
-    wrapper transposes each weight tensor once and keeps the result on
-    it.
+    raises.  Either raises under grad mode when an input requires grad
+    (no backward; the training trunk is ``models.resnet``'s stock-op
+    forward).  The kernel reads the weights transposed (K contiguous):
+    the wrapper transposes each weight tensor once and keeps the result
+    on it.
     """
     global block_launches
+    _build.refuse_grad("stage_apply", x, w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
         return stage_apply_plain(x, dil, w1, b1, w2, b2, w3, b3)
     _check(x, dil, w1, b1, w2, b2, w3, b3)

@@ -106,9 +106,12 @@ def cell_step(h, c, xg, smaps, kps, kh):
     All in one dtype (float32 or bfloat16) on one device.  A CPU tensor
     runs :func:`cell_step_plain`; a CUDA tensor runs ``csrc/cell.cu``
     (C % 32 == 0, S in {1, 2}, contiguous and 16-byte aligned) or
-    raises.
+    raises.  Either raises under grad mode when an input requires grad
+    (no backward; ``components.FusedConvLSTMCell.step`` is the
+    differentiable step).
     """
     global cell_launches
+    _build.refuse_grad("cell_step", h, c, xg, smaps, kps, kh)
     _check(h, c, xg, smaps, kps, kh)
     if h.device.type == "cpu":
         return cell_step_plain(h, c, xg, smaps, kps, kh)

@@ -15,9 +15,13 @@ The reference's quirks are kept (they change the numbers if "fixed"):
 The random draw is split from the transform:
 :func:`random_sample_from_noise` is a pure function of the Gumbel and
 normal noise, and :func:`random_sample` draws that noise from a
-``torch.Generator``.  The categorical draw is ``argmax(logits + gumbel)``,
-the form ``jax.random.categorical`` takes, so the JAX sampler's noise
-fed in here gives its exact actions.
+``torch.Generator`` (:func:`sample_noise`).  The categorical draw is
+``argmax(logits + gumbel)``, the form ``jax.random.categorical`` takes,
+so the JAX sampler's noise fed in here gives its exact actions.
+
+The sampled scanpaths stay differentiable where the SCST loss needs it,
+as in the JAX package: ``action_probs`` are gathered from ``probs`` and
+``durations = exp(normal * sigma2 + mu)`` reach ``mu`` and ``sigma2``.
 """
 
 from __future__ import annotations
@@ -83,25 +87,38 @@ def random_sample_from_noise(probs, mu, sigma2, grid: GridSpec, gumbel,
     probs: [..., T, A] action distributions (softmaxed); mu, sigma2:
     [..., T] LogNormal duration parameters; gumbel: standard Gumbel
     noise shaped like probs; normal: standard normal noise shaped like
-    mu."""
+    mu.  The noise may lead with more axes than the distributions (the
+    [R] rollouts of :func:`sample_noise`); the distributions broadcast
+    over them."""
+    probs = probs.expand(gumbel.shape)
     logits = torch.log(_masked(probs, grid) + 1e-20)
     actions = torch.argmax(logits + gumbel, dim=-1)
     durations = torch.exp(normal * sigma2 + mu)
     return _decode(probs, actions, durations, grid)
 
 
-def random_sample(probs, mu, sigma2, grid: GridSpec,
-                  generator: torch.Generator) -> SampleOut:
-    """Sample one scanpath per leading-batch element, drawing the noise
-    from ``generator`` (on the device of ``probs``).  For several
-    rollouts per image, expand ``probs``/``mu``/``sigma2`` with a
-    leading [R] axis first."""
-    u = torch.rand(probs.shape, generator=generator, device=probs.device,
-                   dtype=probs.dtype)
+def sample_noise(probs, mu, generator: torch.Generator,
+                 rollouts: int | None = None):
+    """(standard Gumbel noise shaped like ``probs``, standard normal
+    noise shaped like ``mu``), drawn from ``generator`` on their device;
+    with ``rollouts`` both lead with an [R] axis."""
+    lead = () if rollouts is None else (rollouts,)
+    u = torch.rand(lead + tuple(probs.shape), generator=generator,
+                   device=probs.device, dtype=probs.dtype)
     tiny = torch.finfo(probs.dtype).tiny
     gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-    normal = torch.randn(mu.shape, generator=generator, device=mu.device,
-                         dtype=mu.dtype)
+    normal = torch.randn(lead + tuple(mu.shape), generator=generator,
+                         device=mu.device, dtype=mu.dtype)
+    return gumbel, normal
+
+
+def random_sample(probs, mu, sigma2, grid: GridSpec,
+                  generator: torch.Generator,
+                  rollouts: int | None = None) -> SampleOut:
+    """Sample one scanpath per leading-batch element, drawing the noise
+    from ``generator`` (on the device of ``probs``); with ``rollouts``,
+    R scanpaths each, every leaf leading with the [R] axis."""
+    gumbel, normal = sample_noise(probs, mu, generator, rollouts)
     return random_sample_from_noise(probs, mu, sigma2, grid, gumbel, normal)
 
 

@@ -85,8 +85,5 @@ class Predictor:
         if decode == "greedy":
             s = greedy_sample(probs, mu, sigma2, self.grid)
             return SampleOut(*(v[None] for v in s))
-        r = num_samples
-        return random_sample(probs.expand(r, *probs.shape),
-                             mu.expand(r, *mu.shape),
-                             sigma2.expand(r, *sigma2.shape), self.grid,
-                             self.generator)
+        return random_sample(probs, mu, sigma2, self.grid, self.generator,
+                             rollouts=num_samples)

@@ -26,7 +26,8 @@ def data_config(args) -> DataConfig:
     return DataConfig(
         img_dir=args.img_dir, fix_dir=args.fix_dir, att_dir=att_dir,
         action_map=(args.map_height, args.map_width),
-        resize=(args.height, args.width),
+        resize=(args.height, args.width), max_length=args.max_length,
+        blur_sigma=args.blur_sigma,
         detector_threshold=args.detector_threshold,
         coco_split=args.coco_split, cache_images=args.cache_images,
         packed_cache_dir=args.packed_cache_dir or None)

@@ -157,6 +157,39 @@ def test_stage_apply_on_cpu_runs_the_plain_version_and_checks_shapes():
         block.stage_apply(x, 1, **dict(w, b1=w["b1"].double()))
 
 
+def _assert_stage_refuses_grad(device):
+    """stage_apply defines no backward: under grad mode it raises for an
+    input that requires grad, whichever it is (before any device
+    dispatch); under no_grad it runs."""
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa
+    args = dict(x=t(np.maximum(rng.standard_normal((1, 3, 4, 64)), 0)),
+                w1=t(rng.standard_normal((1, 64, 32)) * 0.1),
+                b1=t(rng.standard_normal((1, 32))),
+                w2=t(rng.standard_normal((1, 288, 32)) * 0.1),
+                b2=t(rng.standard_normal((1, 32))),
+                w3=t(rng.standard_normal((1, 32, 64)) * 0.1),
+                b3=t(rng.standard_normal((1, 64))))
+    for name in args:
+        kw = dict(args)
+        kw[name] = kw[name].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="stage_apply has no backward"):
+            block.stage_apply(dil=1, **kw)
+        with torch.no_grad():
+            assert block.stage_apply(dil=1, **kw).grad_fn is None
+
+
+def test_stage_apply_refuses_grad():
+    _assert_stage_refuses_grad("cpu")
+
+
+@pytest.mark.gpu
+def test_stage_apply_refuses_grad_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
+    _assert_stage_refuses_grad("cuda")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])

@@ -98,6 +98,39 @@ def test_cell_step_rejects_bad_inputs():
         cell.cell_step(h, c.double(), xg, sm, kp, kh)
 
 
+def _refusal_cases(device):
+    a = _inputs(np.random.default_rng(4), 1, 4, 5, 32, 1)
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    return dict(h=t(a["h"]), c=t(a["c"]), xg=t(a["xg"]),
+                smaps=t(np.stack(a["smaps"], -1)),
+                kps=t(np.stack(a["kps"], 1)), kh=t(a["kh"]))
+
+
+def _assert_cell_refuses_grad(device):
+    """cell_step defines no backward: under grad mode it raises for an
+    input that requires grad, whichever it is; under no_grad it runs."""
+    args = _refusal_cases(device)
+    for name in args:
+        kw = dict(args, c=args["c"].clone())
+        kw[name] = kw[name].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="cell_step has no backward"):
+            cell.cell_step(**kw)
+        with torch.no_grad():
+            h, _ = cell.cell_step(**kw)
+        assert h.grad_fn is None
+
+
+def test_cell_step_refuses_grad():
+    _assert_cell_refuses_grad("cpu")
+
+
+@pytest.mark.gpu
+def test_cell_step_refuses_grad_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
+    _assert_cell_refuses_grad("cuda")
+
+
 def test_fused_cell_matches_flax_cell():
     """FusedConvLSTMCell (biases folded into xg once, then cell_step)
     against the flax cell, from the same weights, one signal stream."""

@@ -1,12 +1,15 @@
 """The port stands alone: every module of ``scanpaths_tpu_torch`` and
 ``chip_smoke.py`` imports with ``jax`` and ``scanpaths_tpu`` made
-unimportable, and no source line of theirs imports either."""
+unimportable, no source line of theirs imports either, and the port's
+copies of the JAX package's numpy modules stay identical to them."""
 
 import os
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "scanpaths_tpu_torch"
@@ -38,6 +41,27 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
+
+
+COPIES = ("core/config.py", "core/grid.py", "data/transforms.py",
+          "metrics/scanmatch.py", "metrics/vame.py", "metrics/multimatch.py",
+          "metrics/evaluation.py", "utils/logger.py")
+
+
+@pytest.mark.parametrize("path", COPIES)
+def test_copied_module_is_identical_to_its_original(path):
+    """The port's copies of the JAX package's numpy modules differ from
+    the originals only in the docstring note that names the original
+    (and, where that note ends the docstring, the line break before its
+    closing quotes).  The originals are read, never written."""
+    note = re.compile(
+        r"\n\nThe port's own copy of ``scanpaths_tpu/" + re.escape(path)
+        + r"``\n\(the port imports nothing of the JAX package\); keep the "
+        r"two identical\.")
+    copy, n = note.subn("", (PORT / path).read_text())
+    assert n == 1, f"{path}: the copy's docstring note is missing"
+    original = (REPO / "scanpaths_tpu" / path).read_text()
+    assert copy.replace('\n"""', '"""') == original.replace('\n"""', '"""')
 
 
 def test_no_source_line_imports_jax():

@@ -11,7 +11,8 @@ flax init with every BN statistic and bias randomised
 from seeded numpy generators.  Tolerances: the whole forward at atol
 2e-4 / rtol 1e-4, the JAX package's own whole-model bound for its fused
 cell (tests/test_pallas_cell.py); the compositions at 1e-5; the metric
-trees at the host suite's bound, rtol 2e-4 / atol 2e-5.
+trees at the host suite's bound, rtol 2e-4 / atol 2e-5; the bfloat16
+forward from the JAX package's own bf16 spread (see its test).
 """
 
 import json
@@ -213,6 +214,42 @@ def test_air_forward_matches_the_interpreted_pallas_cell():
     for k in ref:
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
                                    err_msg=k, **FWD_TOL)
+
+
+@pytest.mark.parametrize("task", ["osie", "air"])
+def test_bf16_forward_matches_the_interpreted_pallas_cell(task):
+    """The port's bfloat16 eval forward against the JAX model's, both
+    running their Pallas-form cell (the JAX one in interpret mode): gate
+    conv and signal taps in bf16, nonlinearities and the state update in
+    float32.  Trunk (1,1,1,1).  The bound is set from the JAX package's
+    own bf16 spread s = max |JAX bf16 - JAX f32| of each output: the
+    port's bf16 output within 2 s of JAX's f32 one and within 3 s of
+    JAX's bf16 one (measured at most 1.8 s and 2.3 s: the two bf16
+    forwards round in different places, the trunk's BN among them)."""
+    layers = (1, 1, 1, 1)
+    rng = np.random.default_rng(4)
+    imgs, kw = _inputs("air", rng, n=2)
+    if task == "osie":
+        kw = {}
+    _, vs = _jax_variables(task, rng, imgs, kw, layers)
+    ref = {}
+    for dt in (jnp.float32, jnp.bfloat16):
+        jm = create_model(task, backbone_layers=layers, cell_impl="interpret",
+                          dtype=dt, **GEOM)
+        ref[dt] = {k: np.asarray(v, np.float32) for k, v in
+                   jm.apply(vs, imgs, train=False, **kw).items()}
+    tm = ScanpathModel(task, backbone_layers=layers, dtype=torch.bfloat16,
+                       **GEOM)
+    tm.load_state_dict(port.from_jax_params(vs["params"], vs["batch_stats"],
+                                            task, 10, 12))
+    out = tm.eval()(t(imgs), t(kw["attention_maps"]) if kw else None)
+    assert set(out) == set(ref[jnp.float32])
+    for k, want in ref[jnp.float32].items():
+        got = out[k].float().numpy()
+        spread = np.abs(ref[jnp.bfloat16][k] - want).max()
+        assert spread > 0, k
+        assert np.abs(got - want).max() <= 2 * spread, k
+        assert np.abs(got - ref[jnp.bfloat16][k]).max() <= 3 * spread, k
 
 
 @pytest.mark.parametrize("task", TASKS)
