@@ -73,7 +73,29 @@ Phases, each reporting on its own lines and with its wall time:
    the step times, images/s, the reward grids' share of the SCST step
    and the NW time inside it, NW ms a call at the reward's shapes, and
    the peak memory allocated per phase;
-8. prints the kernels' JSON line, then {"ok": true, "device": ...} as
+8. the trainer, for each task: writes a train split of 32 images and a
+   validation split of 16 others (phase 3's frames and subject counts,
+   seed 0) and runs scanpaths_tpu_torch.cli.train at full width
+   (--batch 16, 5 rollouts, 10 repeats) with --epoch 2 --start_rl_epoch
+   1 --device_eval true: a human baseline, one supervised epoch and one
+   SCST epoch, each followed by a validation with the device sweep and a
+   checkpoint write (the seed duration head scaled by 0.01, as in
+   phase 7; see trainer_probes).  Checks the run's artifacts (tests/test_e2e.py's contract,
+   .pth for .msgpack), every scalar finite (a validation's MultiMatch
+   columns may be NaN, as in phase 6), the steps and the record, the
+   launch counts (no cell or stage launch in a training step; 16 cell
+   and 3 stage launches per validation forward; NW 2 per SCST step and
+   stream, 2 per human-baseline batch, 2 per sweep batch, repeat and
+   stream), every NW call of the SCST steps against the plain NW
+   exactly; then runs cli.test on the run (it must read the run's own
+   checkpoint_best.pth) and, for OSIE, resumes the run for a third
+   epoch (the record's iteration, Adam's step count and every lr scalar
+   go on; the lr scalar is the lr the optimizer applied, so the resumed
+   steps are held to the --epoch 3 schedule).  Prints per epoch the steps/s and images/s, the wait for host
+   batches, the device's idle share over the epoch's last 3 steps
+   (torch.profiler) and the peak memory; per validation its wall and the
+   sweep's share; per checkpoint write its ms and MB;
+9. prints the kernels' JSON line, then {"ok": true, "device": ...} as
    the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -566,6 +588,21 @@ def _union_ms(spans):
     return busy
 
 
+def _device_events(prof):
+    """A finished torch.profiler's device events: (summed ms by kernel
+    name, the (start, end) us intervals of each stream)."""
+    from torch.autograd import DeviceType
+    times, streams = {}, {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.time_range.end - evt.time_range.start
+        times[evt.name] = times.get(evt.name, 0.0) + us / 1e3
+        streams.setdefault(getattr(evt, "device_resource_id", None), []) \
+            .append((evt.time_range.start, evt.time_range.end))
+    return times, streams
+
+
 def profile_call(fn, label):
     """One call of fn() under torch.profiler after a warm-up: the device
     busy time (the union of the kernels' and copies' intervals), the span
@@ -577,7 +614,6 @@ def profile_call(fn, label):
     the overlap inside one stream and the overlap across streams.  The
     profiler adds host time, so the span is longer than an unprofiled
     call."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -590,14 +626,7 @@ def profile_call(fn, label):
         end.record()
         torch.cuda.synchronize()
     span = start.elapsed_time(end)
-    times, streams = {}, {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = evt.time_range.end - evt.time_range.start
-        times[evt.name] = times.get(evt.name, 0.0) + us / 1e3
-        streams.setdefault(getattr(evt, "device_resource_id", None), []) \
-            .append((evt.time_range.start, evt.time_range.end))
+    times, streams = _device_events(prof)
     busy = _union_ms([iv for ivs in streams.values() for iv in ivs])
     total = sum(times.values())
     if total == 0.0:
@@ -753,9 +782,10 @@ def _fixations(rng, w, h):
             rng.uniform(100, 800, n))
 
 
-def _write_records(task, rng, img_dir, att_dir):
-    """The split's records (and images, attention maps, detector boxes)
-    of one task at its dataset's frame; returns (records, detector)."""
+def _write_records(task, rng, img_dir, att_dir, n=None, first=0):
+    """A split's records (and images, attention maps, detector boxes) of
+    one task at its dataset's frame, for the ``n`` (TEST_IMAGES) images
+    numbered from ``first``; returns (records, detector)."""
     from PIL import Image
 
     from scanpaths_tpu_torch.data.datasets import COCO_OBJECT_NAMES
@@ -764,7 +794,7 @@ def _write_records(task, rng, img_dir, att_dir):
         Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) \
             .save(path)
     recs, dets = [], []
-    for i in range(TEST_IMAGES):
+    for i in range(first, first + (n or TEST_IMAGES)):
         if task == "osie":
             h, w, name = 600, 800, f"{1001 + i}.jpg"
             image(os.path.join(img_dir, name), h, w)
@@ -813,6 +843,20 @@ def _write_records(task, rng, img_dir, att_dir):
     return recs, dets
 
 
+def _split_file(task, split):
+    return {"osie": f"osie_fixations_{split}.json",
+            "air": f"AiR_fixations_{split}.json",
+            "coco": f"coco_search18_fixations_TP_{split}_split1.json"}[task]
+
+
+def _task_dirs(root):
+    """(images, fixations, maps) dirs under ``root``, created."""
+    dirs = [os.path.join(root, d) for d in ("images", "fixations", "maps")]
+    for d in dirs:
+        os.makedirs(d)
+    return dirs
+
+
 def write_test_split(tmp, task):
     """A synthetic evaluation split of one task and a reference-layout
     checkpoint of full-width seed weights, all from seed 0 (module
@@ -822,19 +866,13 @@ def write_test_split(tmp, task):
                                                            init_weights)
     rng = np.random.default_rng(0)
     root = os.path.join(tmp, task)
-    img_dir, fix_dir, att_dir = (os.path.join(root, d)
-                                 for d in ("images", "fixations", "maps"))
+    img_dir, fix_dir, att_dir = _task_dirs(root)
     run_dir = os.path.join(root, "run")
-    for d in (img_dir, fix_dir, att_dir,
-              os.path.join(run_dir, "checkpoints")):
-        os.makedirs(d)
+    os.makedirs(os.path.join(run_dir, "checkpoints"))
     recs, dets = _write_records(task, rng, img_dir, att_dir)
     # the same records serve as the train split (phase 7)
     for split in ("train", "validation" if task == "coco" else "test"):
-        fn = {"osie": f"osie_fixations_{split}.json",
-              "air": f"AiR_fixations_{split}.json",
-              "coco": f"coco_search18_fixations_TP_{split}_split1.json"}[task]
-        with open(os.path.join(fix_dir, fn), "w") as f:
+        with open(os.path.join(fix_dir, _split_file(task, split)), "w") as f:
             json.dump(recs, f)
     if task == "coco":
         with open(os.path.join(att_dir, "coco_search18_detector.json"),
@@ -1164,7 +1202,8 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
     totals = dict.fromkeys(want, 0)
     real_add = device_eval.DeviceSweep.add_batch
     real_add_air = device_eval.DeviceSweep.add_batch_air
-    real_human = test_cli.human_evaluation_device
+    from scanpaths_tpu_torch.train import trainer as tr
+    real_human = tr.human_evaluation_device
     for half in ("false", "true"):
         captured, sweep_secs = [], [0.0]
 
@@ -1195,8 +1234,7 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
                                timed(real_add)), \
                 mock.patch.object(device_eval.DeviceSweep, "add_batch_air",
                                   timed(real_add_air)), \
-                mock.patch.object(test_cli, "human_evaluation_device",
-                                  human), \
+                mock.patch.object(tr, "human_evaluation_device", human), \
                 capture_durations() as calls, \
                 contextlib.redirect_stdout(io.StringIO()):
             metrics = test_cli.main(argv + ["--half_precision", half])
@@ -1366,14 +1404,7 @@ def run_train_slice(cell, block, nw, argv):
     rl_loader = Loader(EvaluationDataset(task, cfg, "train"),
                        batch_size=max(args.batch // 4, 1), shuffle=True,
                        seed=args.seed + 1, drop_last=True)
-    rl_ds = rl_loader.dataset
-    rl_cfg = steps.RLConfig(
-        task=task, grid=trainer.grid_spec(args),
-        rl_sample_number=args.rl_sample_number,
-        max_symbols_wd=int(np.ceil(max(rl_ds.wd_symbols_needed, 256) / 64)
-                           * 64),
-        max_symbols_wod=rl_ds.pad_gt_len,
-        apply_cd=args.apply_consistency_divergence, lambda_5=args.lambda_5)
+    rl_cfg = trainer.rl_config(args, rl_loader.dataset)
     # the first steps of a run, as the trainer takes them: the warmup
     # multiplier is 0 at step 0 (a step moves nothing), then rises by
     # 1 / len(sup_loader) a step.  From fresh moments at the full lr, two
@@ -1558,6 +1589,467 @@ def check_train_parity(argv, batch):
         raise AssertionError(f"supervised step card vs CPU: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the trainer
+# ---------------------------------------------------------------------------
+
+# phase 8's splits: train and validation images per task (the validation
+# split is also OSIE's and AiR's test split; COCO's test driver reads its
+# validation split), and the steps of each epoch profiled
+TRAINER_IMAGES, VALIDATION_IMAGES = 32, 16
+PROFILE_STEPS = 3
+
+
+def write_trainer_split(tmp, task):
+    """Phase 8's data for one task, from seed 0: a train split of
+    TRAINER_IMAGES images and a validation split of VALIDATION_IMAGES
+    others, at phase 3's frames and subject counts.  Returns the train
+    CLI's flags (full width, --batch 16, --eval_repeat_num 10, one
+    supervised and one SCST epoch, the device sweep)."""
+    rng = np.random.default_rng(0)
+    root = os.path.join(tmp, "trainer", task)
+    img_dir, fix_dir, att_dir = _task_dirs(root)
+    train, dets = _write_records(task, rng, img_dir, att_dir, TRAINER_IMAGES)
+    val, val_dets = _write_records(task, rng, img_dir, att_dir,
+                                   VALIDATION_IMAGES, first=TRAINER_IMAGES)
+    splits = {"train": train, "validation": val}
+    if task != "coco":
+        splits["test"] = val
+    for split, recs in splits.items():
+        with open(os.path.join(fix_dir, _split_file(task, split)), "w") as f:
+            json.dump(recs, f)
+    if task == "coco":
+        with open(os.path.join(att_dir, "coco_search18_detector.json"),
+                  "w") as f:
+            json.dump(dets + val_dets, f)
+    maps = {"air": ["--att_dir", att_dir], "coco": ["--detector_dir", att_dir]}
+    return ["--task", task, "--img_dir", img_dir, "--fix_dir", fix_dir,
+            "--log_root", os.path.join(root, "logs"),
+            "--batch", str(TEST_BATCH), "--eval_repeat_num", str(REPEATS),
+            "--seed", "0", "--epoch", "2", "--start_rl_epoch", "1",
+            "--warmup_epoch", "1", "--device_eval", "true",
+            "--device", "cuda"] + maps.get(task, [])
+
+
+def _launches(cell, block, nw):
+    return {"cell_step": cell.cell_launches,
+            "stage_apply": block.block_launches,
+            "nw_scores_bins": nw.nw_launches}
+
+
+def _minus(a, b):
+    return {k: a[k] - b[k] for k in a}
+
+
+def _expect(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+@contextlib.contextmanager
+def trainer_probes(cell, block, nw, tr, device_eval, ck):
+    """Wraps the port's Trainer for phase 8 and yields the list of its
+    records, one dict per training epoch, validation, human baseline and
+    checkpoint write: the launch counts of each (zeroed at its start,
+    read at its end), the epoch's stats (``Trainer.epoch_stats``), its
+    peak memory, the NW calls of an SCST epoch (their inputs and outputs
+    cloned), a torch.profiler window over the epoch's last PROFILE_STEPS
+    steps (device busy and span), the wall times of each validation and
+    of the device sweep inside it, and each checkpoint write's ms and
+    file sizes.  The seed duration head's last conv is scaled by 0.01
+    for every task, as _train_model does for phase 7: COCO's seed
+    LogNormal scale overflows float32 in the SCST sampler (ROADMAP C7),
+    and from OSIE's seed head the SCST epochs can drive sigma2 = exp(t)
+    to float32 zero, where the reference's duration log-density is
+    NaN."""
+    from torch.profiler import ProfilerActivity, profile
+    records = []
+    real = {name: getattr(tr.Trainer, name) for name in
+            ("train_epoch", "_maybe_profile", "validation_device",
+             "human_baseline")}
+    real_init, real_step = tr.init_weights, ck.CheckpointManager.step
+    real_add = device_eval.DeviceSweep.add_batch
+    real_add_air = device_eval.DeviceSweep.add_batch_air
+    sweep = [0.0]
+    window = {}
+
+    def init_weights(model, seed):
+        real_init(model, seed)
+        with torch.no_grad():
+            model.head.drt_layer_2.weight.mul_(0.01)
+
+    def train_epoch(self, iteration, epoch):
+        rl = epoch >= self.args.start_rl_epoch
+        loader = self.train_rl_loader if rl else self.train_loader
+        window.update(first=iteration, n=len(loader), stamps=[], prof=None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, calls = _launches(cell, block, nw), []
+        with (_timed_calls(nw, "nw_scores_bins", calls, keep_args=True)
+              if rl else contextlib.nullcontext()):
+            out = real["train_epoch"](self, iteration, epoch)
+        stamps = window["stamps"]
+        free = len(stamps) - PROFILE_STEPS    # the steps before the window
+        # the trace is read after the epoch, outside its timing
+        _, streams = _device_events(window["done"])
+        busy = _union_ms([iv for ivs in streams.values() for iv in ivs])
+        records.append(dict(
+            kind="epoch", rl=rl, stats=dict(self.epoch_stats),
+            launches=_minus(_launches(cell, block, nw), before),
+            peak=torch.cuda.max_memory_allocated(), nw_calls=calls,
+            busy=busy, span=window["span"],
+            free_rate=(free - 1) / (stamps[free - 1] - stamps[0])
+            if free > 1 else float("nan")))
+        return out
+
+    def maybe_profile(self, iteration):
+        k = iteration - window["first"]         # 1-based step of the epoch
+        window["stamps"].append(time.perf_counter())
+        if k == max(window["n"] - PROFILE_STEPS, 1) and \
+                window["prof"] is None:
+            torch.cuda.synchronize()
+            window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["start"] = torch.cuda.Event(enable_timing=True)
+            window["start"].record()
+        if k == window["n"] and window["prof"] is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            window["prof"].stop()
+            window["span"] = window["start"].elapsed_time(end)
+            window["done"], window["prof"] = window["prof"], None
+
+    def timed(real_fn):
+        def add(*a):
+            t = time.perf_counter()
+            real_fn(*a)
+            sweep[0] += time.perf_counter() - t
+        return add
+
+    def validation_device(self, iteration):
+        torch.cuda.synchronize()
+        before, sweep[0], t0 = (_launches(cell, block, nw), 0.0,
+                                time.perf_counter())
+        out = real["validation_device"](self, iteration)
+        torch.cuda.synchronize()
+        records.append(dict(kind="validation", wall=time.perf_counter() - t0,
+                            sweep=sweep[0],
+                            launches=_minus(_launches(cell, block, nw),
+                                            before)))
+        return out
+
+    def human_baseline(self):
+        before, t0 = _launches(cell, block, nw), time.perf_counter()
+        out = real["human_baseline"](self)
+        records.append(dict(kind="human", wall=time.perf_counter() - t0,
+                            launches=_minus(_launches(cell, block, nw),
+                                            before)))
+        return out
+
+    def checkpoint_step(self, metric, model_state, opt_state=None):
+        torch.cuda.synchronize()
+        best = self.get_best_metric()
+        t0 = time.perf_counter()
+        real_step(self, metric, model_state, opt_state)
+        ms = 1e3 * (time.perf_counter() - t0)
+        wrote_best = not best or (metric >= best)
+        records.append(dict(
+            kind="checkpoint", ms=ms, mb=os.path.getsize(self.path) / 1e6,
+            best_mb=os.path.getsize(self.best_path) / 1e6
+            if wrote_best else None))
+    with mock.patch.object(tr.Trainer, "train_epoch", train_epoch), \
+            mock.patch.object(tr.Trainer, "_maybe_profile", maybe_profile), \
+            mock.patch.object(tr.Trainer, "validation_device",
+                              validation_device), \
+            mock.patch.object(tr.Trainer, "human_baseline", human_baseline), \
+            mock.patch.object(tr, "init_weights", init_weights), \
+            mock.patch.object(ck.CheckpointManager, "step", checkpoint_step), \
+            mock.patch.object(device_eval.DeviceSweep, "add_batch",
+                              timed(real_add)), \
+            mock.patch.object(device_eval.DeviceSweep, "add_batch_air",
+                              timed(real_add_air)):
+        yield records
+
+
+def _run_dir(log_root):
+    runs = [d for d in os.listdir(log_root)
+            if d.startswith("log_") and not d.endswith("_supervised_save")]
+    if len(runs) != 1:
+        raise AssertionError(f"{log_root}: run dirs {runs}")
+    return os.path.join(log_root, runs[0])
+
+
+def _scalars(log_dir):
+    """{tag: {step: [values]}} of a run's scalars.jsonl."""
+    out = {}
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            out.setdefault(r["tag"], {}).setdefault(r["step"], []).append(
+                r["value"])
+    return out
+
+
+def check_run(task, log_dir):
+    """A training run's artifacts (tests/test_e2e.py::test_artifact_contract
+    with .pth for .msgpack) and its scalars: every value finite, but for a
+    validation's MultiMatch columns, which are NaN when every rollout has
+    fewer than 3 fixations (as _check_tree allows).  Returns the record
+    and the scalars."""
+    for name in ("hparams.json", "log_train.txt", "history_record.json",
+                 "scalars.jsonl", "checkpoints/checkpoint.pth",
+                 "checkpoints/checkpoint_best.pth"):
+        if not os.path.exists(os.path.join(log_dir, name)):
+            raise AssertionError(f"{task} run: no {name}")
+    if not os.path.exists(os.path.join(log_dir + "_supervised_save",
+                                       "checkpoints", "checkpoint.pth")):
+        raise AssertionError(f"{task} run: no supervised_save copy")
+    with open(os.path.join(log_dir, "history_record.json")) as f:
+        record = json.load(f)
+    scalars = _scalars(log_dir)
+    bad = {(tag, step): v for tag, steps in scalars.items()
+           for step, vals in steps.items() for v in vals
+           if not math.isfinite(v)
+           and not (tag.startswith("metrics/") and "MultiMatch" in tag
+                    and math.isnan(v))}
+    if bad:
+        raise AssertionError(f"{task} run: non-finite scalars {bad}")
+    # the SCST step's own tags: AiR's group rewards, the others' reward
+    # and overflow (and OSIE's 11 metrics_for_reward/* columns)
+    rl_tags = {"air": ("reward_same_hmean", "reward_diff_hmean"),
+               "osie": ("reward_overflow_frac", "metrics_for_reward/vector",
+                        "metrics_for_reward/STDE best"),
+               "coco": ("reward_overflow_frac", "reward_wd")}[task]
+    for tag in ("loss/loss", "learning_rate", "current metric",
+                "perf/steps_per_sec", "perf/images_per_sec", "rl_loss",
+                "metrics/wd_overflow_frac") + rl_tags:
+        if tag not in scalars:
+            raise AssertionError(f"{task} run: no {tag} scalar")
+    return record, scalars
+
+
+def print_trainer_records(task, label, records, rollouts, nw):
+    """One line per epoch, validation, human baseline and checkpoint
+    write of a run; holds each SCST NW call to the plain NW exactly.
+    Returns the NW calls checked."""
+    checked = 0
+    for rec in records:
+        n = rec["launches"] if "launches" in rec else None
+        if rec["kind"] == "epoch":
+            st = rec["stats"]
+            phase = "SCST" if rec["rl"] else "supervised"
+            rate, free = st["steps_per_sec"], rec["free_rate"]
+            per = st["images_per_step"]
+            wait = st["input_wait_seconds"]
+            busy, span = rec["busy"], rec["span"]
+            print(f"[trainer] {task} {label} epoch {st['epoch']} ({phase}, "
+                  f"{per} images a step"
+                  + (f" x {rollouts} rollouts" if rec["rl"] else "")
+                  + f"): {st['steps']} steps in {st['seconds']:.2f} s; "
+                  f"{free:.3f} steps/s, {free * per:.2f} images/s over "
+                  f"steps 2-{st['steps'] - PROFILE_STEPS} (the trainer's "
+                  f"own steady rate, the profiled steps included: {rate:.3f}"
+                  f" steps/s, {rate * per:.2f} images/s); waited "
+                  f"{wait:.3f} s for host batches "
+                  f"({100 * wait / st['seconds']:.2f}% of the epoch); "
+                  f"device idle "
+                  f"{100 * (1 - busy / span):.1f}% over the last "
+                  f"{PROFILE_STEPS} steps (torch.profiler: busy "
+                  f"{busy:.1f} ms of {span:.1f} ms); peak allocated "
+                  f"{_mib(rec['peak']):.0f} MiB; launches {n}", flush=True)
+            for i, (_, _, a, out) in enumerate(rec["nw_calls"]):
+                _exact(f"{task} {label} SCST NW call {i + 1}", out,
+                       nw.nw_scores_bins_plain(*a))
+            checked += len(rec["nw_calls"])
+        elif rec["kind"] == "validation":
+            print(f"[trainer] {task} {label} validation (device sweep): "
+                  f"{rec['wall']:.2f} s wall, device sweep {rec['sweep']:.2f}"
+                  f" s ({100 * rec['sweep'] / rec['wall']:.1f}%); launches "
+                  f"{n}", flush=True)
+        elif rec["kind"] == "human":
+            print(f"[trainer] {task} {label} human baseline (device): "
+                  f"{rec['wall']:.2f} s wall; launches {n}", flush=True)
+        else:
+            best = (f", checkpoint_best.pth {rec['best_mb']:.1f} MB"
+                    if rec["best_mb"] is not None else
+                    ", checkpoint_best.pth not rewritten")
+            print(f"[trainer] {task} {label} checkpoint write: "
+                  f"{rec['ms']:.1f} ms (checkpoint.pth {rec['mb']:.1f} MB"
+                  f"{best})", flush=True)
+    return checked
+
+
+def check_trainer_launches(task, label, records, n_streams, repeats,
+                           val_forwards, rl_steps, apply_cd):
+    """No cell or stage launch in a training step; 16 cell and 3 stage
+    launches per validation forward; NW: 2 per SCST step and stream (2
+    more per step for AiR's CD term), 2 per human-baseline batch, 2 per
+    sweep batch, repeat and stream."""
+    for i, rec in enumerate(records):
+        where = f"{task} {label} {rec['kind']} {i}"
+        if rec["kind"] == "epoch":
+            nw_want = (2 * n_streams + 2 * apply_cd) * rec["stats"]["steps"] \
+                if rec["rl"] else 0
+            if rec["rl"] and rec["stats"]["steps"] != rl_steps:
+                raise AssertionError(f"{where}: {rec['stats']['steps']} "
+                                     f"SCST steps, expected {rl_steps}")
+            _expect(where, rec["launches"], {"cell_step": 0, "stage_apply": 0,
+                                             "nw_scores_bins": nw_want})
+        elif rec["kind"] == "validation":
+            _expect(where, rec["launches"], {
+                "cell_step": SEQ * val_forwards,
+                "stage_apply": 3 * val_forwards,
+                "nw_scores_bins": 2 * repeats * val_forwards * n_streams})
+        elif rec["kind"] == "human":
+            _expect(where, rec["launches"], {
+                "cell_step": 0, "stage_apply": 0,
+                "nw_scores_bins": 2 * val_forwards})
+
+
+def run_trainer_slice(cell, block, nw, argv):
+    """Phase 8 for one task: cli/train.py at full width on the card (one
+    supervised epoch, then one SCST epoch, each followed by a validation
+    with the device sweep), its artifacts, scalars and launch counts,
+    every NW call of its SCST steps against the plain NW, then
+    cli/test.py on the run (it must read the run's own
+    checkpoint_best.pth), and for OSIE a resumed third epoch (the record's
+    iteration, Adam's step count and the lr scalar go on).  Returns the
+    kernels' launches of the phase."""
+    import shutil
+
+    from scanpaths_tpu_torch.cli import test as test_cli
+    from scanpaths_tpu_torch.cli import train as train_cli
+    from scanpaths_tpu_torch.metrics import device_eval
+    from scanpaths_tpu_torch.serve import predictor
+    from scanpaths_tpu_torch.train import trainer as tr
+    from scanpaths_tpu_torch.train.schedule import lr_multiplier
+    from scanpaths_tpu_torch.utils import checkpointing as ck
+    task = argv[argv.index("--task") + 1]
+    streams = 2 if task == "air" else 1
+    args = _train_args(argv)
+    sup_steps = TRAINER_IMAGES * TEST_SUBJECTS[task] // args.batch
+    rl_steps = TRAINER_IMAGES // max(args.batch // 4, 1)
+    val_forwards = -(-VALIDATION_IMAGES // args.batch)
+    log_root = argv[argv.index("--log_root") + 1]
+    total = dict.fromkeys(("cell_step", "stage_apply", "nw_scores_bins"), 0)
+
+    def run(label, run_argv):
+        t0 = time.perf_counter()
+        with trainer_probes(cell, block, nw, tr, device_eval, ck) as recs, \
+                contextlib.redirect_stdout(io.StringIO()):
+            before = _launches(cell, block, nw)
+            best = train_cli.main(run_argv)
+            got = _minus(_launches(cell, block, nw), before)
+        secs = time.perf_counter() - t0
+        for k in total:
+            total[k] += got[k]
+        check_trainer_launches(task, label, recs, streams,
+                               args.eval_repeat_num, val_forwards, rl_steps,
+                               args.apply_consistency_divergence)
+        checked = print_trainer_records(task, label, recs,
+                                        args.rl_sample_number, nw)
+        epochs = [r for r in recs if r["kind"] == "epoch"]
+        print(f"[trainer] {task} {label}: {len(epochs)} epoch(s) in "
+              f"{secs:.1f} s wall (the whole cli/train.py call: data, model, "
+              f"human baseline, epochs, validations, checkpoints); best "
+              f"metric {best:.4f}; launches {got}; {checked} SCST NW calls "
+              f"held to the plain NW exactly (max abs err 0, NaN in the "
+              f"same places)", flush=True)
+        return recs
+
+    recs = run("run", argv)
+    if [r["stats"]["steps"] for r in recs if r["kind"] == "epoch"] != \
+            [sup_steps, rl_steps]:
+        raise AssertionError(f"{task}: epochs of {recs} steps")
+    log_dir = _run_dir(log_root)
+    record, scalars = check_run(task, log_dir)
+    if (record["epoch"], record["iteration"]) != \
+            (1, sup_steps + rl_steps - 1):
+        raise AssertionError(f"{task} record {record}")
+
+    # the test driver on the run's own checkpoint_best.pth
+    opened = []
+    real_path = predictor.checkpoint_path
+
+    def checkpoint_path(evaluation_dir):
+        opened.append(real_path(evaluation_dir))
+        return opened[-1]
+    test_argv = [a for a in argv] + ["--evaluation_dir", log_dir]
+    before = _launches(cell, block, nw)
+    t0 = time.perf_counter()
+    with mock.patch.object(predictor, "checkpoint_path", checkpoint_path), \
+            contextlib.redirect_stdout(io.StringIO()):
+        metrics = test_cli.main(test_argv)
+    torch.cuda.synchronize()
+    got = _minus(_launches(cell, block, nw), before)
+    for k in total:
+        total[k] += got[k]
+    want_path = os.path.join(log_dir, "checkpoints", "checkpoint_best.pth")
+    if opened != [want_path]:
+        raise AssertionError(f"{task} test driver read {opened}, expected "
+                             f"{want_path}")
+    _check_tree(metrics)
+    _expect(f"{task} test on the run", got, {
+        "cell_step": SEQ * val_forwards, "stage_apply": 3 * val_forwards,
+        "nw_scores_bins": 2 * val_forwards
+        + 2 * REPEATS * val_forwards * streams})
+    out = "validation" if task == "coco" else "test"
+    with open(os.path.join(log_dir, f"{out}_predicts.json")) as f:
+        n_records = len(json.load(f))
+    if n_records != VALIDATION_IMAGES * REPEATS * streams:
+        raise AssertionError(f"{task} test on the run: {n_records} records")
+    print(f"[trainer] {task} cli/test.py --evaluation_dir <the run>: read "
+          f"its checkpoint_best.pth, {n_records} records, "
+          f"{time.perf_counter() - t0:.2f} s wall, launches {got}",
+          flush=True)
+
+    if task == "osie":
+        # resume: a third epoch (SCST) from the record and checkpoint.pth
+        step0 = tr.adam_step(ck.restore_checkpoint(
+            os.path.join(log_dir, "checkpoints"))["optimizer"])
+        if step0 != record["iteration"] + 1:
+            raise AssertionError(f"checkpoint at Adam step {step0}, record "
+                                 f"{record}")
+        resume_argv = argv + ["--resume_dir", log_dir, "--epoch", "3"]
+        run("resume", resume_argv)
+        record2, scalars2 = check_run(task, log_dir)
+        step1 = tr.adam_step(ck.restore_checkpoint(
+            os.path.join(log_dir, "checkpoints"))["optimizer"])
+        want = (2, record["iteration"] + rl_steps)
+        if (record2["epoch"], record2["iteration"]) != want or \
+                step1 != step0 + rl_steps:
+            raise AssertionError(f"resume: record {record2}, Adam step "
+                                 f"{step1}, expected {want} and "
+                                 f"{step0 + rl_steps}")
+        rargs = _train_args(resume_argv)
+        lr = scalars2["learning_rate"]
+        if sorted(lr) != list(range(record2["iteration"] + 1)):
+            raise AssertionError(f"resume: lr scalars at {sorted(lr)}")
+        for it, vals in lr.items():
+            want = rargs.lr * lr_multiplier(
+                it, sup_steps, rl_steps, rargs.warmup_epoch,
+                rargs.start_rl_epoch, rargs.epoch if it > record["iteration"]
+                else args.epoch, rargs.rl_lr_initial_decay)
+            if vals != [want]:
+                raise AssertionError(f"resume: lr at {it} {vals}, "
+                                     f"expected {want}")
+        first = record["iteration"] + 1
+        old_lr = args.lr * lr_multiplier(
+            first, sup_steps, rl_steps, args.warmup_epoch,
+            args.start_rl_epoch, args.epoch, args.rl_lr_initial_decay)
+        print(f"[trainer] osie resume --epoch 3: went on from iteration "
+              f"{record['iteration']} and Adam step {step0} to iteration "
+              f"{record2['iteration']} and step {step1}; every learning_rate "
+              f"scalar (the lr the optimizer applied) written once, equal "
+              f"to lr * lr_multiplier of its run's schedule; first resumed "
+              f"step at lr {lr[first][0]} (the --epoch 2 schedule gave "
+              f"{old_lr})", flush=True)
+    shutil.rmtree(os.path.dirname(log_root))
+    torch.cuda.empty_cache()
+    return total
+
+
 def print_ptxas(log):
     """One line per compiled kernel from ptxas -v: its name with template
     arguments, registers, spills and shared memory."""
@@ -1650,6 +2142,12 @@ def main():
             if task == "osie":
                 check_train_parity(test_argv[task], sup_batch)
             _phase(f"training {task}", t0)
+
+        for task in TASKS:
+            t0 = time.perf_counter()
+            add(run_trainer_slice(cell, block, nw,
+                                  write_trainer_split(tmp, task)))
+            _phase(f"trainer {task}", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),

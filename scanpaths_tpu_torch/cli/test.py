@@ -16,7 +16,8 @@ AiR runs one eval forward per batch and decodes both of its streams
 (good, then poor) from it.  With ``--device_eval true`` every pairwise
 metric is computed on the device (``metrics/device_eval.py``); otherwise
 the host suite (``metrics/evaluation.py``) scores the predictions,
-bucketed by answer correctness for AiR.  ``--device`` (default ``cuda``)
+bucketed by answer correctness for AiR.  The loop is the trainer's
+validation loop (``train/trainer.py::EvalCore.evaluate``).  ``--device`` (default ``cuda``)
 is this CLI's own flag; with no card it raises unless ``--device cpu``
 is given.  Every other flag is ``core/config.py::parse_opt``'s.
 """
@@ -32,10 +33,7 @@ import torch
 
 from ..core.config import parse_opt
 from ..data.datasets import EvaluationDataset, Loader
-from ..metrics import evaluation as heval
-from ..metrics.device_eval import DeviceSweep, human_evaluation_device
-from ..ops.sampling import to_fix_vectors
-from ..train.trainer import Evaluator, data_config, eval_specs, log_metric_tree
+from ..train.trainer import Evaluator, data_config, log_metric_tree
 
 
 def dump_record(img_name, fix_vector, trial, extra=None):
@@ -59,7 +57,8 @@ def main(argv=None):
     ns, rest = pre.parse_known_args(argv)
     args = parse_opt(rest)
     if args.task == "joint":
-        raise NotImplementedError("--task joint: joint runs are not ported")
+        raise NotImplementedError("--task joint: joint runs are not ported "
+                                  "(ROADMAP A12)")
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
@@ -74,65 +73,24 @@ def main(argv=None):
                                       split=split),
                     batch_size=args.batch)
 
-    repeat = args.eval_repeat_num
-    sweep = None
-    if args.device_eval:
-        spec_wd, spec_wod = eval_specs(loader.dataset, evaluator.grid)
-        sweep = DeviceSweep(spec_wd, spec_wod)
-        human_metrics, human_std, _ = human_evaluation_device(
-            loader, spec_wd, spec_wod, task=args.task, device=device)
-    else:
-        human_metrics, human_std, _ = heval.human_evaluation(loader,
-                                                             task=args.task)
+    human_metrics, human_std = evaluator.human_metrics(loader,
+                                                       args.device_eval)
     evaluator.logger.info("The metrics for human performance are: ")
     log_metric_tree(evaluator.logger, human_metrics, human_std)
 
-    # (stream, allocated performance flag) per decode of a batch
-    streams = ((("good", True), ("poor", False)) if args.task == "air"
-               else ((None, None),))
-    all_gt, all_pred, all_perf, all_alloc = [], [], [], []
     predict_results = []
-    for batch in loader:
-        n = len(batch["fix_vectors"])
-        db, per_stream = evaluator.decode_batch_device(
-            batch, repeat, [s for s, _ in streams])
-        for (_, flag), samples in zip(streams, per_stream):
-            preds = to_fix_vectors(samples)          # repeat-major [R*N]
-            for r in range(repeat):
-                if sweep is not None:
-                    # pairwise metrics stay on the device; the host only
-                    # aggregates (metrics/device_eval.py)
-                    gt = (db["gt_fix"], db["gt_len"], db["gt_mask"],
-                          samples.fix[r], samples.fix_len[r])
-                    if args.task == "air":
-                        sweep.add_batch_air(*gt, batch["performances"],
-                                            flag)
-                    else:
-                        sweep.add_batch(*gt)
-                else:
-                    all_gt.extend(batch["fix_vectors"])
-                    if args.task == "air":
-                        all_perf.extend(batch["performances"])
-                        all_alloc.extend([flag] * n)
-                    all_pred.extend(preds[r * n:(r + 1) * n])
-                for i in range(n):
-                    extra = None
-                    if args.task == "air":
-                        extra = {"qid": batch["question_ids"][i],
-                                 "performance": flag}
-                    elif args.task == "coco":
-                        extra = {"task": batch["task_names"][i]}
-                    predict_results.append(dump_record(
-                        batch["img_names"][i], preds[r * n + i], r, extra))
 
-    if sweep is not None:
-        cur_metrics, cur_std = sweep.result()
-        sweep.log_overflow(evaluator.logger)
-    elif args.task == "air":
-        cur_metrics, cur_std, _ = heval.evaluation_performance_related(
-            all_gt, all_pred, all_perf, all_alloc)
-    else:
-        cur_metrics, cur_std, _ = heval.evaluation(all_gt, all_pred)
+    def record(batch, flag, r, preds):
+        for i, pred in enumerate(preds):
+            extra = None
+            if args.task == "air":
+                extra = {"qid": batch["question_ids"][i], "performance": flag}
+            elif args.task == "coco":
+                extra = {"task": batch["task_names"][i]}
+            predict_results.append(dump_record(batch["img_names"][i], pred,
+                                               r, extra))
+    cur_metrics, cur_std = evaluator.evaluate(loader, args.device_eval,
+                                              record=record)
 
     with open(join(log_dir, f"{split}_predicts.json"), "w") as f:
         json.dump(predict_results, f, indent=2)

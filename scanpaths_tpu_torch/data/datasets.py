@@ -20,9 +20,12 @@ pad sizes come from the split, so no ground truth is cut: the subject
 axis is the largest group, the fixation axis the longest scanpath.
 :class:`Loader` batches either, in order or in a seeded shuffle.
 
-Batches are assembled in numpy (the JAX package's native C++ batch
-assembly and packed image store are not carried over:
-``packed_cache_dir`` raises).
+Batches are assembled as the JAX package assembles them: with
+``packed_cache_dir`` the images come from an on-disk packed uint8 store
+(``data/packed_cache.py``), and when the host C++ library builds
+(``native/``, g++ at first use) the scanpath tensorization and the packed
+gather run in it, multi-threaded; both are bit-identical to the numpy
+path, which runs where the library does not build or ``SP_NATIVE=0``.
 """
 
 from __future__ import annotations
@@ -62,7 +65,9 @@ class DataConfig:
     max_subjects: int = 1               # floor for the subject axis
     gt_max_length: int = 1              # floor for the fixation axis
     cache_images: bool = True
-    packed_cache_dir: str | None = None  # not ported: raises if set
+    # on-disk packed image store (data/packed_cache.py), built on first
+    # use; loads are bit-identical to the PIL path
+    packed_cache_dir: str | None = None
 
 
 def tensorize_scanpath(pos_x, pos_y, duration_ms, origin_hw, cfg: DataConfig,
@@ -116,16 +121,42 @@ def tensorize_scanpath(pos_x, pos_y, duration_ms, origin_hw, cfg: DataConfig,
 
 
 class _ImageCache:
-    def __init__(self, enabled: bool):
+    def __init__(self, enabled: bool, packed=None):
         self.enabled = enabled
+        self.packed = packed  # PackedImageCache | None
         self._cache: dict[str, np.ndarray] = {}
+
+    def _read(self, path: str, hw) -> np.ndarray:
+        if self.packed is not None:
+            if self.packed.hw != tuple(hw):
+                raise ValueError(f"packed store built at {self.packed.hw}, "
+                                 f"requested {tuple(hw)}")
+            return self.packed.load(path)
+        return load_image(path, *hw)
 
     def load(self, path: str, hw) -> np.ndarray:
         if not self.enabled:
-            return load_image(path, *hw)
+            return self._read(path, hw)
         if path not in self._cache:
-            self._cache[path] = load_image(path, *hw)
+            self._cache[path] = self._read(path, hw)
         return self._cache[path]
+
+    def gather(self, paths: list[str], hw) -> np.ndarray:
+        """[len(paths), H, W, 3] float32: the packed store's (native when
+        the library is up) gather, else one load per path."""
+        if self.packed is not None:
+            return self.packed.gather(paths)
+        return np.stack([self.load(p, hw) for p in paths])
+
+
+def _make_image_cache(cfg: DataConfig, task, records: list[dict]):
+    packed = None
+    if cfg.packed_cache_dir:
+        from .packed_cache import PackedImageCache
+        packed = PackedImageCache(cfg.packed_cache_dir,
+                                  [task.image_path(rec) for rec in records],
+                                  cfg.resize)
+    return _ImageCache(cfg.cache_images, packed)
 
 
 class TaskAdapter:
@@ -293,22 +324,16 @@ def make_task(task: str | TaskAdapter, cfg: DataConfig) -> TaskAdapter:
     return TASKS[task](cfg)
 
 
-def _check_config(cfg: DataConfig) -> None:
-    if cfg.packed_cache_dir:
-        raise NotImplementedError(
-            "packed_cache_dir: the packed image store is not ported")
-
-
 class SupervisedDataset:
     """Per-subject supervised samples."""
 
     def __init__(self, task: str | TaskAdapter, cfg: DataConfig,
                  split: str = "train"):
-        _check_config(cfg)
         self.cfg = cfg
         self.task = make_task(task, cfg)
         self.records = self.task.load_records(split)
-        self._images = _ImageCache(cfg.cache_images)
+        self._images = _make_image_cache(cfg, self.task, self.records)
+        self._blur_rows = None  # [mh*mw, mh*mw] blur table (native path)
 
     def __len__(self):
         return len(self.records)
@@ -334,8 +359,36 @@ class SupervisedDataset:
     def get_batch(self, indices) -> dict:
         """``collate([self[i] for i in indices])``: ``images``,
         ``scanpaths``, ``durations``, ``action_masks``,
-        ``duration_masks``, ``img_names`` and the task's fields."""
-        return collate([self[int(i)] for i in indices])
+        ``duration_masks``, ``img_names`` and the task's fields; the
+        scanpath tensorization and the packed-image gather run in the
+        native library when it is up (bit-identical)."""
+        from .. import native
+
+        if not native.available():
+            return collate([self[int(i)] for i in indices])
+        recs = [self.records[int(i)] for i in indices]
+        xs, ys, ds, origins = [], [], [], []
+        for rec in recs:
+            x, y, d = self.task.xyd_ms(rec)
+            xs.append(x), ys.append(y), ds.append(d)
+            origins.append(self.task.origin_hw(rec))
+        mh, mw = self.cfg.action_map
+        if self.cfg.blur_sigma and self._blur_rows is None:
+            self._blur_rows = native.make_blur_rows(mh, mw,
+                                                    self.cfg.blur_sigma)
+        target, duration, amask, dmask = native.tensorize_batch(
+            xs, ys, ds, origins, self.cfg.max_length, mh, mw,
+            clamp_to_grid=self.task.clamp_to_grid(),
+            blur_rows=self._blur_rows)
+        paths = [self.task.image_path(rec) for rec in recs]
+        out = {"images": self._images.gather(paths, self.cfg.resize),
+               "scanpaths": target, "durations": duration,
+               "action_masks": amask, "duration_masks": dmask,
+               "img_names": [os.path.basename(p) for p in paths]}
+        extras = [self.task.extras(rec) for rec in recs]
+        if extras and extras[0]:
+            out.update(collate(extras))
+        return out
 
 
 class EvaluationDataset:
@@ -343,11 +396,10 @@ class EvaluationDataset:
 
     def __init__(self, task: str | TaskAdapter, cfg: DataConfig,
                  split: str = "validation"):
-        _check_config(cfg)
         self.cfg = cfg
         self.task = make_task(task, cfg)
         self.records = self.task.load_records(split)
-        self._images = _ImageCache(cfg.cache_images)
+        self._images = _make_image_cache(cfg, self.task, self.records)
         self.groups: dict[Any, list[int]] = {}
         for i, rec in enumerate(self.records):
             self.groups.setdefault(self.task.group_key(rec), []).append(i)
@@ -414,8 +466,13 @@ class EvaluationDataset:
         return out
 
     def get_batch(self, indices) -> dict:
-        """``collate([self[i] for i in indices])``."""
-        return collate([self[int(i)] for i in indices])
+        """``collate([self[i] for i in indices])``, the images through
+        the packed store's gather when it is set."""
+        samples, paths = zip(*(self._sample_without_image(int(i))
+                               for i in indices))
+        out = collate(list(samples))
+        out["images"] = self._images.gather(list(paths), self.cfg.resize)
+        return out
 
 
 RAGGED_KEYS = ("fix_vectors", "performances", "img_name", "question_id",

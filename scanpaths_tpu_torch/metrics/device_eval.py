@@ -173,9 +173,13 @@ class DeviceSweep:
         return {"count": self._overflow, "total": self._preds,
                 "frac": self._overflow / max(self._preds, 1)}
 
-    def log_overflow(self, logger):
-        """A WARNING when any rollout was truncated."""
+    def log_overflow(self, logger, writer=None,
+                     tag: str = "metrics/wd_overflow_frac", step: int = 0):
+        """The truncation counter: a scalar for ``writer`` (if given) and
+        a WARNING when any rollout was truncated."""
         ov = self.overflow
+        if writer is not None:
+            writer.add_scalar(tag, ov["frac"], step)
         if ov["count"]:
             logger.warning(
                 f"device-eval w/-duration table overflow: "

@@ -235,6 +235,18 @@ class ScanpathModel(nn.Module):
                 "log_normal_sigma2": torch.where(sel[:, None], gs2, ps2)}
 
 
+def model_from_flags(args) -> ScanpathModel:
+    """The model the flags describe (``--task``, ``--embed``,
+    ``--max_length``, ``--map_height``/``--map_width``,
+    ``--backbone_layers``; bfloat16 compute under ``--half_precision``,
+    with float32 parameters), its weights not yet set."""
+    layers = tuple(int(v) for v in str(args.backbone_layers).split(","))
+    return ScanpathModel(
+        args.task, embed=args.embed, seq_len=args.max_length,
+        map_h=args.map_height, map_w=args.map_width, backbone_layers=layers,
+        dtype=torch.bfloat16 if args.half_precision else torch.float32)
+
+
 def init_weights(model: ScanpathModel, seed: int) -> None:
     """Weights from ``seed`` with the reference's init schemes: He-normal
     trunk convs with unit-gamma BN, Xavier-normal decoder convs (per gate

@@ -18,12 +18,27 @@ import torch
 
 from ..core.grid import GridSpec
 from ..models.port import load_reference_state_dict
-from ..models.scanpath_model import ScanpathModel, init_weights
+from ..models.scanpath_model import init_weights, model_from_flags
 from ..ops.sampling import SampleOut, greedy_sample, random_sample
 
 
 def checkpoint_path(evaluation_dir: str) -> str:
     return os.path.join(evaluation_dir, "checkpoints", "checkpoint_best.pth")
+
+
+def eval_forward(model, device, ablate_attention: bool, images,
+                 attention_maps=None, task_ids=None) -> dict:
+    """NHWC float32 images [N, height, width, 3], attention maps
+    [N, map_h, map_w, 1] (AiR, COCO; zeroed under ``ablate_attention``,
+    the ``--ablate_attention_info`` flag) and task ids [N] (COCO), as
+    numpy arrays -> the model's eval output dict, on ``device``."""
+    if attention_maps is not None and ablate_attention:
+        attention_maps = np.zeros_like(attention_maps)
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(
+            np.asarray(a)).to(device)
+    return model(dev(images), dev(attention_maps), dev(task_ids))
 
 
 class Predictor:
@@ -34,12 +49,7 @@ class Predictor:
                              map_height=args.map_height, width=args.width,
                              height=args.height, max_length=args.max_length,
                              min_length=args.min_length)
-        layers = tuple(int(v) for v in str(args.backbone_layers).split(","))
-        self.model = ScanpathModel(
-            args.task, embed=args.embed, seq_len=args.max_length,
-            map_h=args.map_height, map_w=args.map_width,
-            backbone_layers=layers,
-            dtype=torch.bfloat16 if args.half_precision else torch.float32)
+        self.model = model_from_flags(args)
         if args.evaluation_dir:
             path = checkpoint_path(args.evaluation_dir)
             if not os.path.isfile(path):
@@ -60,17 +70,9 @@ class Predictor:
 
     def forward(self, images: np.ndarray, attention_maps=None,
                 task_ids=None) -> dict:
-        """NHWC float32 images [N, height, width, 3], attention maps
-        [N, map_h, map_w, 1] (AiR, COCO; zeroed under
-        ``--ablate_attention_info``) and task ids [N] (COCO), as numpy
-        arrays -> the eval output dict, on the device."""
-        if attention_maps is not None and self.args.ablate_attention_info:
-            attention_maps = np.zeros_like(attention_maps)
-
-        def dev(a):
-            return None if a is None else torch.from_numpy(
-                np.asarray(a)).to(self.device)
-        return self.model(dev(images), dev(attention_maps), dev(task_ids))
+        return eval_forward(self.model, self.device,
+                            self.args.ablate_attention_info, images,
+                            attention_maps, task_ids)
 
     def decode(self, out: dict, decode: str, num_samples: int,
                stream: str | None = None) -> SampleOut:

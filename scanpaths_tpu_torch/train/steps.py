@@ -67,7 +67,12 @@ def device_batch(batch: dict, device, for_rl: bool,
     """The fields a step reads (``RL_KEYS`` from an ``EvaluationDataset``
     batch, else ``SUPERVISED_KEYS`` from a ``SupervisedDataset`` one) as
     tensors on ``device``; AiR's ``performances`` as float32, the
-    attention maps zeroed under ``ablate_attention``."""
+    attention maps zeroed under ``ablate_attention``.  For a CUDA device
+    each field is staged in pinned host memory and copied with
+    ``non_blocking=True`` on the calling thread's current stream (the
+    trainer's prefetch thread issues them on the default stream, which
+    orders them before the steps that read them)."""
+    pin = torch.device(device).type == "cuda"
     out = {}
     for k in RL_KEYS if for_rl else SUPERVISED_KEYS:
         if k not in batch:
@@ -77,7 +82,9 @@ def device_batch(batch: dict, device, for_rl: bool,
             v = v.astype(np.float32)
         if k == "attention_maps" and ablate_attention:
             v = np.zeros_like(v)
-        out[k] = torch.as_tensor(v, device=device)
+        host = torch.as_tensor(v)
+        out[k] = host.pin_memory().to(device, non_blocking=True) if pin \
+            else host.to(device)
     return out
 
 
@@ -93,14 +100,15 @@ class TrainState:
 
     @classmethod
     def create(cls, model, args, steps_sup: int, steps_rl: int,
-               step: int = 0, device="cuda") -> "TrainState":
+               step: int = 0, device="cuda",
+               opt_state: dict | None = None) -> "TrainState":
         """The state of ``model``, moved to ``device`` (the card unless
         the caller asks for the CPU), with ``schedule.make_optimizer``'s
         Adam and schedule from the flags, starting at optimizer step
-        ``step``."""
+        ``step`` (with the moments of ``opt_state`` when resuming)."""
         model.to(device)
         opt, sched = make_optimizer(model.parameters(), args, steps_sup,
-                                    steps_rl, step)
+                                    steps_rl, step, opt_state)
         return cls(model, opt, sched, args.clip, step)
 
     def apply_gradients(self) -> torch.Tensor:

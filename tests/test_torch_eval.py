@@ -11,6 +11,7 @@ between ATen and XLA); the aggregated metric trees at the host suite's
 bound, rtol 2e-4 / atol 2e-5 (tests/test_device_eval.py).
 """
 
+import dataclasses
 import json
 import os
 
@@ -384,8 +385,9 @@ def test_copied_modules_match_the_jax_package():
     from scanpaths_tpu_torch.core import grid as tgrid
     assert tgrid.GridSpec() == tgrid.GridSpec(**vars(GridSpec()))
     assert tgrid.FIX_DTYPE == jdata.FIX_DTYPE
-    with pytest.raises(NotImplementedError, match="packed"):
-        tdata.EvaluationDataset("osie", tdata.DataConfig(
-            img_dir="", fix_dir="", packed_cache_dir="x"))
+    # the same data settings, the packed image store among them
+    # (test_torch_persistence.py holds its batches to the JAX package's)
+    assert [(f.name, f.default) for f in dataclasses.fields(tdata.DataConfig)] \
+        == [(f.name, f.default) for f in dataclasses.fields(jdata.DataConfig)]
     assert os.path.basename(jheval.__file__) == \
         os.path.basename(theval.__file__)

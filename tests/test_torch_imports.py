@@ -27,7 +27,9 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     mods = _port_modules() + ["chip_smoke"]
-    assert "scanpaths_tpu_torch.ops.nw" in mods
+    assert {"scanpaths_tpu_torch.ops.nw", "scanpaths_tpu_torch.cli.train",
+            "scanpaths_tpu_torch.utils.checkpointing",
+            "scanpaths_tpu_torch.native"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['scanpaths_tpu'] = None\n"
@@ -45,19 +47,24 @@ def test_port_imports_without_jax():
 
 COPIES = ("core/config.py", "core/grid.py", "data/transforms.py",
           "metrics/scanmatch.py", "metrics/vame.py", "metrics/multimatch.py",
-          "metrics/evaluation.py", "utils/logger.py")
+          "metrics/evaluation.py", "utils/logger.py", "utils/recording.py",
+          "data/prefetch.py", "data/packed_cache.py", "native/__init__.py",
+          "native/sp_native.cpp")
 
 
 @pytest.mark.parametrize("path", COPIES)
 def test_copied_module_is_identical_to_its_original(path):
-    """The port's copies of the JAX package's numpy modules differ from
-    the originals only in the docstring note that names the original
-    (and, where that note ends the docstring, the line break before its
-    closing quotes).  The originals are read, never written."""
+    """The port's copies of the JAX package's host modules differ from
+    the originals only in the note that names the original: a docstring
+    paragraph (and, where that note ends the docstring, the line break
+    before its closing quotes), or in the C++ source a comment paragraph.
+    The originals are read, never written."""
+    lead, sep = (r"\n//\n// ", r"\n// ") if path.endswith(".cpp") \
+        else (r"\n\n", r"\n")
     note = re.compile(
-        r"\n\nThe port's own copy of ``scanpaths_tpu/" + re.escape(path)
-        + r"``\n\(the port imports nothing of the JAX package\); keep the "
-        r"two identical\.")
+        lead + r"The port's own copy of ``scanpaths_tpu/" + re.escape(path)
+        + r"``" + sep + r"\(the port imports nothing of the JAX package\); "
+        r"keep the two identical\.")
     copy, n = note.subn("", (PORT / path).read_text())
     assert n == 1, f"{path}: the copy's docstring note is missing"
     original = (REPO / "scanpaths_tpu" / path).read_text()
