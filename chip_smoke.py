@@ -95,7 +95,34 @@ Phases, each reporting on its own lines and with its wall time:
    batches, the device's idle share over the epoch's last 3 steps
    (torch.profiler) and the peak memory; per validation its wall and the
    sweep's share; per checkpoint write its ms and MB;
-9. prints the kernels' JSON line, then {"ok": true, "device": ...} as
+9. the joint trainer: writes a joint data root in
+   tools/make_synth_data.py's layout (16 train and 16 validation images
+   a task, phase 3's frames and subject counts, seed 0) and runs
+   scanpaths_tpu_torch.cli.train --task joint at full width (one trunk,
+   three heads; --batch 16, 5 rollouts, 10 repeats) with --epoch 2
+   --start_rl_epoch 1 --device_eval true: a human baseline per task, one
+   supervised and one SCST epoch round-robin over the tasks, each
+   followed by a validation of every head with the device sweep and a
+   checkpoint write (every head's duration conv scaled by 0.01, as in
+   phase 8).  Checks the artifacts, hparams.json's task, the record (its
+   iteration the sum of the tasks' steps), every scalar finite (a
+   validation's MultiMatch columns may be NaN), each task's tags, the
+   current metric against the harmonic mean of the per-task ScanMatch
+   harmonic means recomputed from the scalars, the round-robin step
+   order read from the scalars' steps, one trunk (no head holds one),
+   the launch counts (no cell or stage launch in a training step; per
+   validation forward 16 cell, S = 2 for AiR, and 3 stage launches; NW 2
+   per SCST step and stream, 2 per human-baseline batch, 2 per sweep
+   batch, repeat and stream), every SCST NW call against the plain NW
+   exactly, and every cell and stage call of the trained model's AiR
+   eval forward against its plain version; then runs cli.test on each
+   head of the run (it must read the joint checkpoint_best.pth) and
+   cli.predict on its COCO head (12 images, three target categories,
+   phase 5's record checks).  Prints per epoch and task the steps,
+   images/s, the wait for host batches, the idle share over the task's
+   last 3 steps and the peak memory; per validation and task its wall
+   and the sweep's share; per checkpoint write its ms and MB;
+10. prints the kernels' JSON line, then {"ok": true, "device": ...} as
    the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -508,9 +535,9 @@ def serving_inputs(tmp, task):
     return []
 
 
-def run_slice(cell, block, predict, tmp, task):
-    """The serving slice of one task; returns the launch counts of the
-    served runs."""
+def serving_images(tmp):
+    """The IMAGES served images (640x480, seed 0), written once under
+    ``tmp``; returns their dir."""
     from PIL import Image
     img_dir = os.path.join(tmp, "images")
     if not os.path.isdir(img_dir):
@@ -520,6 +547,13 @@ def run_slice(cell, block, predict, tmp, task):
             Image.fromarray(rng.integers(0, 256, (480, 640, 3),
                                          dtype=np.uint8)) \
                 .save(os.path.join(img_dir, f"img_{i:02d}.png"))
+    return img_dir
+
+
+def run_slice(cell, block, predict, tmp, task):
+    """The serving slice of one task; returns the launch counts of the
+    served runs."""
+    img_dir = serving_images(tmp)
     common = ["--task", task, "--predict_images", img_dir,
               "--batch", str(BATCH), "--embed", "512",
               "--backbone_layers", "3,4,6,3", "--height", "240",
@@ -2050,6 +2084,559 @@ def run_trainer_slice(cell, block, nw, argv):
     return total
 
 
+JOINT_IMAGES = 16        # train and validation images a task
+# the joint data root's dirs per task: images, fixations, maps
+JOINT_LAYOUT = {"osie": ("stimuli", "fixations", None),
+                "air": ("stimuli", "fixations", "attention"),
+                "coco": ("images", "fixations", "detectors")}
+
+
+def _joint_dirs(root, task):
+    return [os.path.join(root, task, d) if d else None
+            for d in JOINT_LAYOUT[task]]
+
+
+def write_joint_root(tmp):
+    """Phase 9's data from seed 0: a joint data root in
+    tools/make_synth_data.py's layout, for each task JOINT_IMAGES train
+    and JOINT_IMAGES validation images at phase 3's frames and subject
+    counts (OSIE's and AiR's validation records also form their test
+    split).  Returns the train CLI's flags (full width, --batch 16,
+    --eval_repeat_num 10, one supervised and one SCST epoch, the device
+    sweep)."""
+    rng = np.random.default_rng(0)
+    root = os.path.join(tmp, "joint")
+    for task in TASKS:
+        img_dir, fix_dir, att_dir = _joint_dirs(root, task)
+        for d in (img_dir, fix_dir, att_dir):
+            if d:
+                os.makedirs(d)
+        train, dets = _write_records(task, rng, img_dir, att_dir,
+                                     JOINT_IMAGES)
+        val, val_dets = _write_records(task, rng, img_dir, att_dir,
+                                       JOINT_IMAGES, first=JOINT_IMAGES)
+        splits = {"train": train, "validation": val}
+        if task != "coco":
+            splits["test"] = val
+        for split, recs in splits.items():
+            with open(os.path.join(fix_dir, _split_file(task, split)),
+                      "w") as f:
+                json.dump(recs, f)
+        if task == "coco":
+            with open(os.path.join(att_dir, "coco_search18_detector.json"),
+                      "w") as f:
+                json.dump(dets + val_dets, f)
+    return ["--task", "joint", "--joint_data_root", root,
+            "--log_root", os.path.join(root, "logs"),
+            "--batch", str(TEST_BATCH), "--eval_repeat_num", str(REPEATS),
+            "--seed", "0", "--epoch", "2", "--start_rl_epoch", "1",
+            "--warmup_epoch", "1", "--device_eval", "true",
+            "--device", "cuda"]
+
+
+def joint_head_flags(root, task):
+    """cli/test.py's data flags for one task of the joint data root."""
+    img_dir, fix_dir, att_dir = _joint_dirs(root, task)
+    maps = {"air": ["--att_dir", att_dir],
+            "coco": ["--detector_dir", att_dir]}
+    return ["--task", task, "--img_dir", img_dir, "--fix_dir",
+            fix_dir] + maps.get(task, [])
+
+
+@contextlib.contextmanager
+def joint_probes(cell, block, nw, jt, steps, device_eval, ck):
+    """Wraps the port's JointTrainer for phase 9 and yields (records, the
+    trainer): one record per training step, epoch, task validation, task
+    human baseline and checkpoint write.  A step record holds its task,
+    kind, launch counts, its wall to the end of its device work, its span
+    between CUDA events, its peak memory and its NW calls (SCST; inputs
+    and outputs cloned); for each task's last PROFILE_STEPS steps of an
+    epoch, a torch.profiler window of its own (CUDA activity; one trace
+    over several SCST steps, ~12 thousand kernels each, lost records on
+    the card), read after the epoch for the step's device busy time.  An epoch record holds
+    the trainer's epoch_stats; a validation record its wall, the device
+    sweep's share and launches.  Every head's duration conv is scaled by
+    0.01, as phase 8 scales the single-task head (trainer_probes)."""
+    from torch.profiler import ProfilerActivity, profile
+    records, trainer = [], {}
+    real_init, real_fit = jt.init_weights, jt.JointTrainer.fit
+    real_epoch = jt.JointTrainer.train_epoch
+    real_steps = {"sup": steps.supervised_step, "rl": steps.rl_step}
+    real_eval = jt.TaskContext.evaluate
+    real_human = jt.TaskContext.human_metrics
+    real_ckpt = ck.CheckpointManager.step
+    real_add = device_eval.DeviceSweep.add_batch
+    real_add_air = device_eval.DeviceSweep.add_batch_air
+    sweep = [0.0]
+    epoch = {}
+
+    def init_weights(model, seed):
+        real_init(model, seed)
+        with torch.no_grad():
+            for task in TASKS:
+                model.task_head(task).head.drt_layer_2.weight.mul_(0.01)
+
+    def fit(self):
+        trainer["trainer"] = self
+        return real_fit(self)
+
+    def train_epoch(self, iteration, ep):
+        rl = ep >= self.args.start_rl_epoch
+        epoch.update(seen=dict.fromkeys(TASKS, 0), n={
+            t: len(c.train_rl_loader if rl else c.train_loader)
+            for t, c in self.tasks.items()})
+        out = real_epoch(self, iteration, ep)
+        # the traces are read after the epoch, outside its timing
+        for rec in records:
+            prof = rec.pop("prof", None)
+            if prof is not None:
+                _, streams = _device_events(prof)
+                rec["busy"] = _union_ms([iv for ivs in streams.values()
+                                         for iv in ivs])
+        records.append(dict(kind="epoch", rl=rl, epoch=ep,
+                            stats={t: dict(s) for t, s in
+                                   self.epoch_stats.items()}))
+        return out
+
+    def step_probe(kind):
+        real = real_steps[kind]
+
+        def step(state, *a, **kw):
+            task = state.model.task
+            epoch["seen"][task] += 1
+            profiled = epoch["seen"][task] > epoch["n"][task] - PROFILE_STEPS
+            before, calls, prof = _launches(cell, block, nw), [], None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if profiled:
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            with (_timed_calls(nw, "nw_scores_bins", calls, keep_args=True)
+                  if kind == "rl" else contextlib.nullcontext()):
+                out = real(state, *a, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec = dict(kind="step", task=task, rl=kind == "rl",
+                       launches=_minus(_launches(cell, block, nw), before),
+                       wall=wall, span=start.elapsed_time(end),
+                       peak=torch.cuda.max_memory_allocated(),
+                       nw_calls=calls, profiled=profiled)
+            if prof is not None:
+                prof.stop()
+                rec["prof"] = prof
+            records.append(rec)
+            return out
+        return step
+
+    def timed(real_fn):
+        def add(*a):
+            t = time.perf_counter()
+            real_fn(*a)
+            sweep[0] += time.perf_counter() - t
+        return add
+
+    def evaluate(self, loader, device_eval_, iteration=0, record=None):
+        torch.cuda.synchronize()
+        before, sweep[0], t0 = (_launches(cell, block, nw), 0.0,
+                                time.perf_counter())
+        out = real_eval(self, loader, device_eval_, iteration, record)
+        torch.cuda.synchronize()
+        records.append(dict(kind="validation", task=self.task,
+                            wall=time.perf_counter() - t0, sweep=sweep[0],
+                            forwards=len(loader),
+                            launches=_minus(_launches(cell, block, nw),
+                                            before)))
+        return out
+
+    def human_metrics(self, loader, device_eval_):
+        before, t0 = _launches(cell, block, nw), time.perf_counter()
+        out = real_human(self, loader, device_eval_)
+        torch.cuda.synchronize()
+        records.append(dict(kind="human", task=self.task, forwards=len(loader),
+                            wall=time.perf_counter() - t0,
+                            launches=_minus(_launches(cell, block, nw),
+                                            before)))
+        return out
+
+    def checkpoint_step(self, metric, model_state, opt_state=None):
+        torch.cuda.synchronize()
+        best = self.get_best_metric()
+        t0 = time.perf_counter()
+        real_ckpt(self, metric, model_state, opt_state)
+        ms = 1e3 * (time.perf_counter() - t0)
+        wrote_best = not best or (metric >= best)
+        records.append(dict(
+            kind="checkpoint", ms=ms, mb=os.path.getsize(self.path) / 1e6,
+            best_mb=os.path.getsize(self.best_path) / 1e6
+            if wrote_best else None))
+    with mock.patch.object(jt, "init_weights", init_weights), \
+            mock.patch.object(jt.JointTrainer, "fit", fit), \
+            mock.patch.object(jt.JointTrainer, "train_epoch", train_epoch), \
+            mock.patch.object(steps, "supervised_step", step_probe("sup")), \
+            mock.patch.object(steps, "rl_step", step_probe("rl")), \
+            mock.patch.object(jt.TaskContext, "evaluate", evaluate), \
+            mock.patch.object(jt.TaskContext, "human_metrics",
+                              human_metrics), \
+            mock.patch.object(ck.CheckpointManager, "step", checkpoint_step), \
+            mock.patch.object(device_eval.DeviceSweep, "add_batch",
+                              timed(real_add)), \
+            mock.patch.object(device_eval.DeviceSweep, "add_batch_air",
+                              timed(real_add_air)):
+        yield records, trainer
+
+
+def check_joint_run(log_dir, order, tasks):
+    """The joint run's artifacts, its record, its scalars (every one
+    finite, but a validation's MultiMatch columns, which may be NaN as in
+    phase 6; each task's tags, learning_rate and current metric), the
+    round-robin step order read from the scalars' steps against
+    ``order`` (the expected (task, SCST) of each iteration), and each
+    validation's current metric against the harmonic mean of the three
+    per-task ScanMatch harmonic means recomputed from the logged
+    scalars.  Returns the record."""
+    for name in ("hparams.json", "log_train.txt", "history_record.json",
+                 "scalars.jsonl", "checkpoints/checkpoint.pth",
+                 "checkpoints/checkpoint_best.pth"):
+        if not os.path.exists(os.path.join(log_dir, name)):
+            raise AssertionError(f"joint run: no {name}")
+    if not os.path.exists(os.path.join(log_dir + "_supervised_save",
+                                       "checkpoints", "checkpoint.pth")):
+        raise AssertionError("joint run: no supervised_save copy")
+    with open(os.path.join(log_dir, "hparams.json")) as f:
+        if json.load(f)["task"] != "joint":
+            raise AssertionError("joint run: hparams.json is not joint's")
+    with open(os.path.join(log_dir, "history_record.json")) as f:
+        record = json.load(f)
+    if (record["epoch"], record["iteration"]) != (1, len(order) - 1):
+        raise AssertionError(f"joint record {record}, expected epoch 1 and "
+                             f"iteration {len(order) - 1}")
+    scalars = _scalars(log_dir)
+    bad = {(tag, step): v for tag, steps in scalars.items()
+           for step, vals in steps.items() for v in vals
+           if not math.isfinite(v)
+           and not ("/metrics/" in tag and "MultiMatch" in tag
+                    and math.isnan(v))}
+    if bad:
+        raise AssertionError(f"joint run: non-finite scalars {bad}")
+    need = ["learning_rate", "current metric"]
+    for t in tasks:
+        group = "all-" if t == "air" else ""
+        need += [f"{t}/loss/loss", f"{t}/rl_loss",
+                 f"{t}/metrics/{group}ScanMatch-w/o duration",
+                 f"{t}/metrics/wd_overflow_frac"]
+    for tag in need:
+        if tag not in scalars:
+            raise AssertionError(f"joint run: no {tag} scalar")
+    got = []
+    for it in range(len(order)):
+        got += [(t, rl) for t in tasks for rl, tag in
+                ((False, f"{t}/loss/loss"), (True, f"{t}/rl_loss"))
+                if it in scalars[tag]]
+    if got != order:
+        raise AssertionError(f"joint step order {got}, expected {order}")
+
+    def hmean(vals):
+        return len(vals) / sum(1.0 / v for v in vals)
+    for step, (value,) in scalars["current metric"].items():
+        per_task = []
+        for t in tasks:
+            groups = ("right_answer-", "wrong_answer-") if t == "air" \
+                else ("",)
+            per_task.append(hmean([
+                scalars[f"{t}/metrics/{g}ScanMatch-{col}"][step][0]
+                for g in groups for col in ("w/o duration",
+                                            "with duration")]))
+        if not math.isclose(value, hmean(per_task), rel_tol=1e-9):
+            raise AssertionError(f"joint current metric {value} at {step}, "
+                                 f"recomputed {hmean(per_task)}")
+    return record, scalars
+
+
+def check_joint_records(records, nw, repeats):
+    """The launch counts of the phase's training steps (no cell or stage
+    launch; NW 2 per SCST step and stream), validations (16 cell and 3
+    stage launches per forward, NW 2 per sweep batch, repeat and stream)
+    and human baselines (NW 2 per batch), and every NW call of the SCST
+    steps against the plain NW exactly.  Returns the NW calls checked."""
+    checked = 0
+    for i, rec in enumerate(records):
+        where = f"joint {rec['kind']} {i} ({rec.get('task')})"
+        streams = 2 if rec.get("task") == "air" else 1
+        if rec["kind"] == "step":
+            _expect(where, rec["launches"], {
+                "cell_step": 0, "stage_apply": 0,
+                "nw_scores_bins": 2 * streams if rec["rl"] else 0})
+            for j, (_, _, a, out) in enumerate(rec["nw_calls"]):
+                _exact(f"{where} SCST NW call {j + 1}", out,
+                       nw.nw_scores_bins_plain(*a))
+            checked += len(rec["nw_calls"])
+        elif rec["kind"] == "validation":
+            fw = rec["forwards"]
+            _expect(where, rec["launches"], {
+                "cell_step": SEQ * fw, "stage_apply": 3 * fw,
+                "nw_scores_bins": 2 * repeats * fw * streams})
+        elif rec["kind"] == "human":
+            _expect(where, rec["launches"], {
+                "cell_step": 0, "stage_apply": 0,
+                "nw_scores_bins": 2 * rec["forwards"]})
+    return checked
+
+
+def print_joint_records(records, rollouts):
+    """Per epoch and task: steps, the steady images/s (steps 2 to the
+    last unprofiled one, each step timed to the end of its device work),
+    the trainer's own rate, the wait for host batches, the device's idle
+    share over the task's last PROFILE_STEPS steps, the peak memory and
+    each step's wall;
+    per validation and task its wall and the sweep's share; per human
+    baseline and checkpoint write its wall (and MB)."""
+    steps_by = {}
+    for rec in records:
+        if rec["kind"] == "step":
+            steps_by.setdefault((rec["rl"], rec["task"]), []).append(rec)
+        elif rec["kind"] == "epoch":
+            phase = "SCST" if rec["rl"] else "supervised"
+            for task, st in rec["stats"].items():
+                srecs = steps_by.pop((rec["rl"], task))
+                # the steady rate leaves out the first step, and the
+                # profiled ones where two or more others remain
+                free = [r for r in srecs[1:] if not r["profiled"]]
+                which = "unprofiled"
+                if len(free) < 2:
+                    free, which = srecs[1:], "the profiled ones included"
+                prof = [r for r in srecs if r["profiled"]]
+                per = st["images_per_step"]
+                rate = len(free) / sum(r["wall"] for r in free)
+                busy = sum(r["busy"] for r in prof)
+                span = sum(r["span"] for r in prof)
+                own = st["steps"] / st["seconds"] if st["seconds"] else 0.0
+                print(f"[joint] epoch {rec['epoch']} ({phase}) {task}: "
+                      f"{st['steps']} steps of {per} images"
+                      + (f" x {rollouts} rollouts" if rec["rl"] else "")
+                      + f"; {rate:.3f} steps/s, {rate * per:.2f} images/s "
+                      f"over {len(free)} of its steps from the second "
+                      f"({which}; the trainer's own rate over all "
+                      f"its steps, the profiled ones included: {own:.3f} "
+                      f"steps/s); waited {st['input_wait_seconds']:.3f} s "
+                      f"for host batches; device idle "
+                      f"{100 * (1 - busy / span):.1f}% over its last "
+                      f"{len(prof)} steps (torch.profiler: busy {busy:.1f} "
+                      f"ms of {span:.1f} ms); peak allocated in its steps "
+                      f"{_mib(max(r['peak'] for r in srecs)):.0f} MiB; "
+                      f"step walls (ms, * profiled) "
+                      + " ".join(f"{1e3 * r['wall']:.0f}"
+                                 + "*" * r["profiled"] for r in srecs),
+                      flush=True)
+        elif rec["kind"] == "validation":
+            print(f"[joint] validation (device sweep) {rec['task']}: "
+                  f"{rec['wall']:.2f} s wall, device sweep "
+                  f"{rec['sweep']:.2f} s "
+                  f"({100 * rec['sweep'] / rec['wall']:.1f}%); launches "
+                  f"{rec['launches']}", flush=True)
+        elif rec["kind"] == "human":
+            print(f"[joint] human baseline (device) {rec['task']}: "
+                  f"{rec['wall']:.2f} s wall; launches {rec['launches']}",
+                  flush=True)
+        elif rec["kind"] == "checkpoint":
+            best = (f", checkpoint_best.pth {rec['best_mb']:.1f} MB"
+                    if rec["best_mb"] is not None else
+                    ", checkpoint_best.pth not rewritten")
+            print(f"[joint] checkpoint write: {rec['ms']:.1f} ms "
+                  f"(checkpoint.pth {rec['mb']:.1f} MB{best})", flush=True)
+
+
+def check_joint_model(cell, block, trainer):
+    """One trunk: the joint model holds a trunk and its three heads none;
+    then one eval forward of the trained model on the first AiR
+    validation batch, every cell call (S = 2) and stage call held to its
+    plain version on the same inputs (phase 4's float32 tolerance): the
+    kernels read the weights the training steps changed in place."""
+    model = trainer.model
+    names = [n for n, _ in model.named_parameters()]
+    if any(model.task_head(t).backbone is not None for t in TASKS) or \
+            any("backbone" in n.split(".", 1)[1] for n in names
+                if not n.startswith("backbone.")):
+        raise AssertionError("a joint head holds a trunk")
+    count = {p: sum(v.numel() for n, v in model.named_parameters()
+                    if n.startswith(p + "."))
+             for p in ("backbone",) + TASKS}
+    errs = {"cell_step": [], "stage_apply": []}
+    streams = []
+    cell_k, stage_k = cell.cell_step, block.stage_apply
+
+    def checked_cell(h, c, *a):
+        streams.append(a[1].shape[-1])
+        c_p = c.clone()
+        h_k, c_k = cell_k(h, c, *a)
+        h_p, c_p = cell.cell_step_plain(h, c_p, *a)
+        errs["cell_step"].append(max(
+            _close("joint cell after training", h_k, h_p, F32_TOL,
+                   scaled=True),
+            _close("joint cell after training", c_k, c_p, F32_TOL,
+                   scaled=True)))
+        return h_k, c_k
+
+    def checked_stage(x, dil, *w):
+        y_k = stage_k(x, dil, *w)
+        errs["stage_apply"].append(_close(
+            "joint stage after training", y_k,
+            block.stage_apply_plain(x, dil, *w), F32_TOL, scaled=True))
+        return y_k
+    ctx = trainer.tasks["air"]
+    batch = next(iter(ctx.validation_loader))
+    with mock.patch.object(cell, "cell_step", checked_cell), \
+            mock.patch.object(block, "stage_apply", checked_stage):
+        ctx.forward(batch)
+    torch.cuda.synchronize()
+    if len(errs["cell_step"]) != SEQ or len(errs["stage_apply"]) != 3 or \
+            set(streams) != {2}:
+        raise AssertionError(f"joint forward after training: "
+                             f"{len(errs['cell_step'])} cell calls (streams "
+                             f"{set(streams)}), {len(errs['stage_apply'])} "
+                             "stage calls")
+    print(f"[joint] one trunk: {sum(count.values())} parameters, trunk "
+          f"{count['backbone']}, heads "
+          + ", ".join(f"{t} {count[t]}" for t in TASKS)
+          + "; no head holds a trunk.  The trained model's AiR eval forward,"
+          " each kernel call against its plain version on the same inputs: "
+          + ", ".join(f"{k} {len(v)} calls, max abs err {max(v):.3g}"
+                      for k, v in errs.items()), flush=True)
+
+
+def run_joint_slice(cell, block, nw, tmp):
+    """Phase 9: cli/train.py --task joint at full width on the card (one
+    supervised and one SCST epoch round-robin over the three tasks, each
+    followed by a validation of every head with the device sweep), its
+    artifacts, scalars, step order and launch counts, every NW call of
+    its SCST steps against the plain NW, one trunk and the trained
+    kernels against their plain versions, then cli/test.py on each head
+    of the run and cli/predict.py on its COCO head.  Returns the
+    kernels' launches of the phase."""
+    import shutil
+
+    from scanpaths_tpu_torch.cli import predict
+    from scanpaths_tpu_torch.cli import test as test_cli
+    from scanpaths_tpu_torch.cli import train as train_cli
+    from scanpaths_tpu_torch.metrics import device_eval
+    from scanpaths_tpu_torch.serve import predictor
+    from scanpaths_tpu_torch.train import joint as jt
+    from scanpaths_tpu_torch.train import steps
+    from scanpaths_tpu_torch.utils import checkpointing as ck
+    argv = write_joint_root(tmp)
+    root = argv[argv.index("--joint_data_root") + 1]
+    log_root = argv[argv.index("--log_root") + 1]
+    args = _train_args(argv)
+    t0 = time.perf_counter()
+    with joint_probes(cell, block, nw, jt, steps, device_eval, ck) as (
+            records, held), contextlib.redirect_stdout(io.StringIO()):
+        before = _launches(cell, block, nw)
+        best = train_cli.main(argv)
+        total = _minus(_launches(cell, block, nw), before)
+    secs = time.perf_counter() - t0
+    trainer = held.pop("trainer")
+    checked = check_joint_records(records, nw, args.eval_repeat_num)
+    print_joint_records(records, args.rl_sample_number)
+    n = {rl: {t: len(c.train_rl_loader if rl else c.train_loader)
+              for t, c in trainer.tasks.items()} for rl in (False, True)}
+    order = [(t, rl) for rl in (False, True)
+             for t, _ in jt.round_robin({t: range(k)
+                                         for t, k in n[rl].items()})]
+    log_dir = trainer.log_dir
+    check_joint_run(log_dir, order, TASKS)
+    print(f"[joint] cli/train.py --task joint: {len(order)} steps "
+          f"round-robin (supervised {n[False]}, SCST {n[True]}) in the "
+          f"order the scalars show; {secs:.1f} s wall (data, model, human "
+          f"baselines, epochs, validations, checkpoints); best joint metric "
+          f"{best:.4f} (the harmonic mean of the per-task ScanMatch "
+          f"harmonic means, recomputed from the scalars); launches {total}; "
+          f"{checked} SCST NW calls held to the plain NW exactly",
+          flush=True)
+    check_joint_model(cell, block, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the test driver on each head of the run
+    opened = []
+    real_path = predictor.checkpoint_path
+
+    def checkpoint_path(evaluation_dir):
+        opened.append(real_path(evaluation_dir))
+        return opened[-1]
+    want_path = os.path.join(log_dir, "checkpoints", "checkpoint_best.pth")
+    fw = -(-JOINT_IMAGES // args.batch)
+    for task in TASKS:
+        streams = 2 if task == "air" else 1
+        before, t0 = _launches(cell, block, nw), time.perf_counter()
+        with mock.patch.object(predictor, "checkpoint_path",
+                               checkpoint_path), \
+                contextlib.redirect_stdout(io.StringIO()):
+            metrics = test_cli.main(joint_head_flags(root, task) + [
+                "--evaluation_dir", log_dir, "--batch", str(args.batch),
+                "--eval_repeat_num", str(REPEATS), "--seed", "0",
+                "--device_eval", "true", "--device", "cuda"])
+        torch.cuda.synchronize()
+        got = _minus(_launches(cell, block, nw), before)
+        if opened[-1:] != [want_path]:
+            raise AssertionError(f"{task} test on the joint run read "
+                                 f"{opened}, expected {want_path}")
+        _check_tree(metrics)
+        _expect(f"{task} test on the joint run", got, {
+            "cell_step": SEQ * fw, "stage_apply": 3 * fw,
+            "nw_scores_bins": 2 * fw + 2 * REPEATS * fw * streams})
+        out = "validation" if task == "coco" else "test"
+        with open(os.path.join(log_dir, f"{out}_predicts.json")) as f:
+            n_records = len(json.load(f))
+        if n_records != JOINT_IMAGES * REPEATS * streams:
+            raise AssertionError(f"{task} test on the joint run: "
+                                 f"{n_records} records")
+        for k in total:
+            total[k] += got[k]
+        print(f"[joint] cli/test.py --task {task} --evaluation_dir <the "
+              f"joint run>: read its checkpoint_best.pth, {n_records} "
+              f"records, {time.perf_counter() - t0:.2f} s wall, launches "
+              f"{got}", flush=True)
+
+    # serving the run's COCO head
+    img_dir = serving_images(tmp)
+    cell.cell_launches = block.block_launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(predictor, "checkpoint_path", checkpoint_path), \
+            capture_durations() as calls:
+        records = predict.main([
+            "--task", "coco", "--predict_images", img_dir,
+            "--evaluation_dir", log_dir, "--batch", str(BATCH),
+            "--decode", "sample", "--num_samples", "10", "--seed", "0",
+            "--device", "cuda", "--predict_out",
+            os.path.join(tmp, "joint_coco.json")]
+            + serving_inputs(tmp, "coco"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    forwards = -(-IMAGES // BATCH)
+    if opened[-1:] != [want_path]:
+        raise AssertionError(f"predict on the joint run read {opened[-1:]}")
+    inf = overflowed_durations(
+        calls, [min(BATCH, IMAGES - lo) for lo in range(0, IMAGES, BATCH)],
+        "coco", True)
+    _check_records(records, IMAGES, 10, 320, 240, overflow=inf)
+    got = {"cell_step": cell.cell_launches, "stage_apply": block.block_launches}
+    _expect("predict on the joint run", got, {
+        "cell_step": SEQ * forwards, "stage_apply": 3 * forwards})
+    for k in got:
+        total[k] += got[k]
+    print(f"[joint] cli/predict.py --task coco --evaluation_dir <the joint "
+          f"run>: {len(records)} records from {IMAGES} images with targets "
+          f"{SERVE_TARGETS}, {secs:.2f} s wall, launches {got}; {inf} "
+          "sampled durations overflow float32", flush=True)
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return total
+
+
 def print_ptxas(log):
     """One line per compiled kernel from ptxas -v: its name with template
     arguments, registers, spills and shared memory."""
@@ -2148,6 +2735,10 @@ def main():
             add(run_trainer_slice(cell, block, nw,
                                   write_trainer_split(tmp, task)))
             _phase(f"trainer {task}", t0)
+
+        t0 = time.perf_counter()
+        add(run_joint_slice(cell, block, nw, tmp))
+        _phase("joint trainer", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),

@@ -11,7 +11,9 @@ Conditioning inputs: AiR and COCO take an attention map per image
 (``--predict_att`` .npy files, resized to the map and divided by their
 max; zeros when omitted); COCO also takes the search target
 (``--target_category``, one name for every image or one per image).  An
-AiR checkpoint serves its good (right-answer) stream.
+AiR checkpoint serves its good (right-answer) stream.  A joint run
+(``--evaluation_dir`` at a ``--task joint`` run) serves its ``--task``
+head; ``--task joint`` itself raises.
 
 ``--device`` (default ``cuda``) is this CLI's own flag; every other flag
 is ``core/config.py::parse_opt``'s, the JAX package's CLI flags.  With
@@ -71,8 +73,10 @@ def main(argv=None) -> list[dict]:
     ns, rest = pre.parse_known_args(argv)
     args = parse_opt(rest)
     if args.task == "joint":
-        raise NotImplementedError("--task joint: serve one task of a joint "
-                                  "run; joint runs are not ported")
+        raise ValueError(
+            "serve a joint checkpoint one task at a time: pass --task "
+            "osie|air|coco with --evaluation_dir pointing at the joint run "
+            "(the Evaluator detects the joint checkpoint from hparams.json)")
     if args.bundle:
         raise ValueError("--bundle: exported bundles are not served by "
                          "the port")

@@ -8,7 +8,9 @@ stream for AiR), write the prediction JSON, print the metric tree.
         [--device_eval true] [--half_precision true] [--device cuda]
 
 ``RUN/checkpoints/checkpoint_best.pth`` is a reference-layout torch
-checkpoint.  OSIE and AiR evaluate their test split and write
+checkpoint; of a joint run (``--task joint`` in ``RUN/hparams.json``) the
+``--task`` head is evaluated (``--task joint`` itself raises: one task at
+a time).  OSIE and AiR evaluate their test split and write
 ``RUN/test_predicts.json``; COCO evaluates its validation split (it has
 no public test split, reference COCO_Search18/test.py:67-68) and writes
 ``RUN/validation_predicts.json``; the log goes to ``RUN/log_test.txt``.
@@ -57,8 +59,11 @@ def main(argv=None):
     ns, rest = pre.parse_known_args(argv)
     args = parse_opt(rest)
     if args.task == "joint":
-        raise NotImplementedError("--task joint: joint runs are not ported "
-                                  "(ROADMAP A12)")
+        raise ValueError(
+            "evaluate a joint run one task at a time: point "
+            "--evaluation_dir at the joint log dir and pass --task "
+            "osie|air|coco — the Evaluator detects the joint checkpoint "
+            "from the run's hparams.json and loads the matching head")
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "

@@ -10,8 +10,21 @@
   layout: HWIO -> OIHW, Dense [in, out] -> Linear [out, in].
 
 Both return a dict for ``ScanpathModel.load_state_dict``;
-:func:`to_reference_state_dict` goes back to the reference layout.  The
-task-specific names (reference AiR/COCO variants):
+:func:`to_reference_state_dict` goes back to the reference layout.
+
+The joint model (``JointScanpathModel``) is stored in the joint layout:
+its trunk once, under the reference's trunk keys (``resnet.*``), and
+each head's reference-layout keys under ``<task>.``
+(:func:`to_joint_reference_state_dict`).
+:func:`load_joint_reference_state_dict` reads the whole joint model
+back; :func:`task_reference_state_dict` takes out one task's
+single-task reference layout (the trunk and that head), which
+:func:`load_reference_state_dict` and the single-task ``ScanpathModel``
+read as they read a single-task run's.  :func:`joint_from_jax_params`
+carries the JAX package's joint flax trees (``{backbone, osie, air,
+coco}``) over.
+
+The task-specific names (reference AiR/COCO variants):
 
   reference                              port (ScanpathModel)
   -------------------------------------  ------------------------------
@@ -270,3 +283,64 @@ def from_jax_params(params: dict, batch_stats: dict, task: str = "osie",
     dict."""
     return load_reference_state_dict(
         _flax_to_reference(params, batch_stats, task, map_h, map_w), task)
+
+
+JOINT_TASKS = ("osie", "air", "coco")
+
+
+def _is_trunk(key: str) -> bool:
+    return key.startswith("resnet.")
+
+
+def to_joint_reference_state_dict(sd: dict, map_h: int, map_w: int) -> dict:
+    """The port's ``JointScanpathModel`` state dict -> the joint layout:
+    the trunk once under ``resnet.*``, each head's reference-layout keys
+    under ``<task>.``."""
+    trunk = {k: v for k, v in sd.items() if k.startswith("backbone.")}
+    out: dict[str, torch.Tensor] = {}
+    for task in JOINT_TASKS:
+        pre = task + "."
+        head = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+        ref = to_reference_state_dict({**trunk, **head}, task, map_h, map_w)
+        for key, v in ref.items():
+            out[key if _is_trunk(key) else pre + key] = v
+    return out
+
+
+def task_reference_state_dict(sd: dict, task: str) -> dict:
+    """One task's single-task reference-layout state dict (the trunk and
+    that head) from a joint-layout one (a bare state dict or a
+    ``{"model": ...}`` checkpoint)."""
+    _check_task(task)
+    sd = sd.get("model", sd)
+    pre = task + "."
+    out = {k: v for k, v in sd.items() if _is_trunk(k)}
+    out.update({k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)})
+    return out
+
+
+def load_joint_reference_state_dict(sd: dict) -> dict:
+    """Joint-layout state dict (or ``{"model": ...}`` checkpoint) -> the
+    port's ``JointScanpathModel`` state dict."""
+    out: dict[str, torch.Tensor] = {}
+    for task in JOINT_TASKS:
+        for key, v in load_reference_state_dict(
+                task_reference_state_dict(sd, task), task).items():
+            out[key if key.startswith("backbone.") else f"{task}.{key}"] = v
+    return out
+
+
+def joint_from_jax_params(params: dict, batch_stats: dict, map_h: int = 30,
+                          map_w: int = 40) -> dict:
+    """The JAX package's ``JointScanpathModel`` trees (``{backbone, osie,
+    air, coco}``, nested dicts of numpy arrays) -> the port's
+    ``JointScanpathModel`` state dict; each task's trunk-plus-head tree
+    goes through :func:`from_jax_params`."""
+    out: dict[str, torch.Tensor] = {}
+    for task in JOINT_TASKS:
+        single = from_jax_params(
+            {"backbone": params["backbone"], **params[task]},
+            {"backbone": batch_stats["backbone"]}, task, map_h, map_w)
+        for key, v in single.items():
+            out[key if key.startswith("backbone.") else f"{task}.{key}"] = v
+    return out

@@ -21,6 +21,13 @@ steps differentiate :meth:`ScanpathModel.forward_train`, the same
 decoder in stock ops over the trunk's stock-op forward (the kernels
 define no backward).
 
+A head built with ``trunk=False`` holds no trunk: its ``forward`` and
+``forward_train`` take the trunk's grid [N, H, W, 2048] as ``features``.
+:class:`JointScanpathModel` is one trunk feeding three such heads (the
+OSIE, AiR and COCO plugins), and :class:`TaskView` the single-task
+interface of one of its heads, which the training steps and the
+evaluation loop drive.
+
 Tensors are NHWC.  The forward returns the JAX model's eval outputs:
 ``all_actions_prob`` [N, T, 1 + H*W] (softmaxed, STOP at index 0),
 ``log_normal_mu`` / ``log_normal_sigma2`` [N, T] and ``action_map``
@@ -60,7 +67,8 @@ TASK_MODES = {"osie": "single", "air": "dual", "coco": "bank"}
 class ScanpathModel(nn.Module):
     def __init__(self, task: str = "osie", embed: int = 512,
                  seq_len: int = 16, map_h: int = 30, map_w: int = 40,
-                 backbone_layers=(3, 4, 6, 3), dtype=torch.float32):
+                 backbone_layers=(3, 4, 6, 3), dtype=torch.float32,
+                 trunk: bool = True):
         super().__init__()
         if task not in TASK_MODES:
             raise ValueError(f"task {task!r}: one of {sorted(TASK_MODES)}")
@@ -68,7 +76,8 @@ class ScanpathModel(nn.Module):
         self.map_h, self.map_w, self.dtype = map_h, map_w, dtype
         self.streams = ("good", "poor") if task == "air" else (None,)
         hw = map_h * map_w
-        self.backbone = resnet.DilatedResNet50(backbone_layers)
+        self.backbone = (resnet.DilatedResNet50(backbone_layers) if trunk
+                         else None)
         self.sal_conv = nn.Conv2d(2048, embed, 3, padding=1)
         self.xgates = XGates(embed, dtype)
         self.lstm = FusedConvLSTMCell(embed, len(self.streams), dtype)
@@ -192,20 +201,30 @@ class ScanpathModel(nn.Module):
                 pre + "action_map": amap.float()})
         return result
 
+    def _trunk(self) -> resnet.DilatedResNet50:
+        if self.backbone is None:
+            raise ValueError("a head without a trunk takes features")
+        return self.backbone
+
     @torch.no_grad()
-    def forward(self, images, attention_maps=None, task_ids=None):
+    def forward(self, images=None, attention_maps=None, task_ids=None,
+                features=None):
         """images: NHWC [N, height, width, 3] float32; attention_maps:
         [N, H, W, 1] (AiR, COCO; zeros when None); task_ids: [N] int
         (COCO) -> the eval output dict (see the module docstring).  The
         serving path: no gradients, the trunk BN-folded through
         ``ops.block.stage_apply`` and each decode step through
-        ``ops.cell.cell_step``."""
-        x = resnet.fused_forward(self.backbone, images, self.dtype)
+        ``ops.cell.cell_step``.  ``features`` [N, H, W, 2048], the
+        trunk's grid, replaces the trunk (a head without one needs
+        them)."""
+        x = features if features is not None else resnet.fused_forward(
+            self._trunk(), images, self.dtype)
         return self._eval_outputs(self._decode(x, attention_maps, task_ids,
                                                differentiable=False))
 
-    def forward_train(self, images, attention_maps=None, task_ids=None,
-                      performances=None, train: bool = True):
+    def forward_train(self, images=None, attention_maps=None,
+                      task_ids=None, performances=None, train: bool = True,
+                      features=None):
         """The forward the training steps differentiate, in stock ops
         (the cell and stage kernels have no backward); the JAX model's
         ``apply(..., train=train)`` with the XLA cell.
@@ -217,10 +236,13 @@ class ScanpathModel(nn.Module):
         subject answered with (good where true), selected per sample, its
         logits under ``all_actions_prob`` (the JAX model's key).  Not
         ``train`` (the SCST forward): BN on the running statistics and
-        the eval output dict of :meth:`forward`, softmaxed."""
+        the eval output dict of :meth:`forward`, softmaxed.  ``features``
+        as in :meth:`forward` (the trunk's stock-op grid, with its
+        gradient)."""
         if train and self.task == "air" and performances is None:
             raise ValueError("the AiR training forward needs performances")
-        x = self.backbone(images, train=train, dtype=self.dtype)
+        x = features if features is not None else self._trunk()(
+            images, train=train, dtype=self.dtype)
         outs = self._decode(x, attention_maps, task_ids, differentiable=True)
         if not train:
             return self._eval_outputs(outs)
@@ -235,26 +257,91 @@ class ScanpathModel(nn.Module):
                 "log_normal_sigma2": torch.where(sel[:, None], gs2, ps2)}
 
 
-def model_from_flags(args) -> ScanpathModel:
+class JointScanpathModel(nn.Module):
+    """One dilated ResNet-50 trunk feeding the three task heads
+    (``osie``, ``air``, ``coco``: :class:`ScanpathModel` heads without a
+    trunk), the JAX package's ``JointScanpathModel``.  The trunk is
+    shared and learns from every task; each head is its task's own.
+    ``task`` picks the head of a call."""
+
+    def __init__(self, embed: int = 512, seq_len: int = 16, map_h: int = 30,
+                 map_w: int = 40, backbone_layers=(3, 4, 6, 3),
+                 dtype=torch.float32):
+        super().__init__()
+        self.embed, self.seq_len = embed, seq_len
+        self.map_h, self.map_w, self.dtype = map_h, map_w, dtype
+        self.backbone = resnet.DilatedResNet50(backbone_layers)
+        for task in TASK_MODES:
+            self.add_module(task, ScanpathModel(
+                task, embed=embed, seq_len=seq_len, map_h=map_h, map_w=map_w,
+                dtype=dtype, trunk=False))
+
+    def task_head(self, task: str) -> ScanpathModel:
+        if task not in TASK_MODES:
+            raise ValueError(f"task {task!r}: one of {sorted(TASK_MODES)}")
+        return getattr(self, task)
+
+    @torch.no_grad()
+    def forward(self, images, task: str = "osie", attention_maps=None,
+                task_ids=None):
+        """The eval forward of ``task``'s head (``ScanpathModel.forward``)
+        on the shared trunk, BN-folded through ``ops.block.stage_apply``."""
+        x = resnet.fused_forward(self.backbone, images, self.dtype)
+        return self.task_head(task).forward(attention_maps=attention_maps,
+                                       task_ids=task_ids, features=x)
+
+    def forward_train(self, images, task: str = "osie", attention_maps=None,
+                      task_ids=None, performances=None, train: bool = True):
+        """``ScanpathModel.forward_train`` of ``task``'s head on the shared
+        trunk's stock-op forward (with ``train``, BN on batch statistics
+        and the trunk's running statistics updated)."""
+        x = self.backbone(images, train=train, dtype=self.dtype)
+        return self.task_head(task).forward_train(
+            attention_maps=attention_maps, task_ids=task_ids,
+            performances=performances, train=train, features=x)
+
+
+class TaskView(nn.Module):
+    """The single-task interface of one head of a
+    :class:`JointScanpathModel` (the JAX package's ``TaskView``):
+    ``task``, ``forward``, ``forward_train``, ``train()``/``eval()`` and
+    ``parameters()``, which cover the whole joint model, so one optimizer
+    over a view steps every parameter (the heads a step does not reach
+    get a zero gradient, and decay)."""
+
+    def __init__(self, joint: JointScanpathModel, task: str):
+        super().__init__()
+        joint.task_head(task)
+        self.joint, self.task = joint, task
+        self.map_h, self.map_w, self.dtype = joint.map_h, joint.map_w, \
+            joint.dtype
+
+    def forward(self, images, attention_maps=None, task_ids=None):
+        return self.joint(images, self.task, attention_maps, task_ids)
+
+    def forward_train(self, images, attention_maps=None, task_ids=None,
+                      performances=None, train: bool = True):
+        return self.joint.forward_train(images, self.task, attention_maps,
+                                        task_ids, performances, train)
+
+
+def model_from_flags(args):
     """The model the flags describe (``--task``, ``--embed``,
     ``--max_length``, ``--map_height``/``--map_width``,
     ``--backbone_layers``; bfloat16 compute under ``--half_precision``,
-    with float32 parameters), its weights not yet set."""
-    layers = tuple(int(v) for v in str(args.backbone_layers).split(","))
-    return ScanpathModel(
-        args.task, embed=args.embed, seq_len=args.max_length,
-        map_h=args.map_height, map_w=args.map_width, backbone_layers=layers,
-        dtype=torch.bfloat16 if args.half_precision else torch.float32)
+    with float32 parameters), its weights not yet set: a
+    :class:`JointScanpathModel` for ``--task joint``."""
+    kw = dict(embed=args.embed, seq_len=args.max_length,
+              map_h=args.map_height, map_w=args.map_width,
+              backbone_layers=tuple(
+                  int(v) for v in str(args.backbone_layers).split(",")),
+              dtype=torch.bfloat16 if args.half_precision else torch.float32)
+    if args.task == "joint":
+        return JointScanpathModel(**kw)
+    return ScanpathModel(args.task, **kw)
 
 
-def init_weights(model: ScanpathModel, seed: int) -> None:
-    """Weights from ``seed`` with the reference's init schemes: He-normal
-    trunk convs with unit-gamma BN, Xavier-normal decoder convs (per gate
-    group for the fused gate convs, per head for the COCO bank),
-    normal(0.01) Linear layers, zero biases.  Drawn on the CPU, so a seed
-    gives the same weights on every device."""
-    gen = torch.Generator().manual_seed(seed)
-    resnet.init_weights(model.backbone, gen)
+def _init_head(model: ScanpathModel, gen: torch.Generator) -> None:
     groups = {"xgates.gates_x": 4, "lstm.gates_h": 4, "lstm.gates_s0": 3,
               "lstm.gates_s1": 3}
     with torch.no_grad():
@@ -277,3 +364,20 @@ def init_weights(model: ScanpathModel, seed: int) -> None:
             else:
                 continue
             mod.bias.zero_()
+
+
+def init_weights(model, seed: int) -> None:
+    """Weights from ``seed`` with the reference's init schemes: He-normal
+    trunk convs with unit-gamma BN, Xavier-normal decoder convs (per gate
+    group for the fused gate convs, per head for the COCO bank),
+    normal(0.01) Linear layers, zero biases.  A
+    :class:`JointScanpathModel` draws its trunk once, then each head as
+    its task's.  Drawn on the CPU, so a seed gives the same weights on
+    every device."""
+    gen = torch.Generator().manual_seed(seed)
+    if model.backbone is not None:
+        resnet.init_weights(model.backbone, gen)
+    heads = ([model.task_head(t) for t in TASK_MODES]
+             if isinstance(model, JointScanpathModel) else [model])
+    for head in heads:
+        _init_head(head, gen)

@@ -3,13 +3,16 @@
 :class:`Predictor` builds the OSIE :class:`ScanpathModel` from the
 parsed flags on an explicit device, loads its weights from a
 reference-layout torch checkpoint (``<evaluation_dir>/checkpoints/
-checkpoint_best.pth``, the reference's own best-model file) or, with no
-``--evaluation_dir``, makes them from ``--seed``, and decodes the eval
-forward's distributions greedily or by sampling.
+checkpoint_best.pth``, the reference's own best-model file; of a joint
+run, whose ``hparams.json`` says ``joint``, the ``--task`` head taken out
+of the joint layout) or, with no ``--evaluation_dir``, makes them from
+``--seed``, and decodes the eval forward's distributions greedily or by
+sampling.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -17,13 +20,24 @@ import numpy as np
 import torch
 
 from ..core.grid import GridSpec
-from ..models.port import load_reference_state_dict
+from ..models.port import (load_reference_state_dict,
+                           task_reference_state_dict)
 from ..models.scanpath_model import init_weights, model_from_flags
 from ..ops.sampling import SampleOut, greedy_sample, random_sample
 
 
 def checkpoint_path(evaluation_dir: str) -> str:
     return os.path.join(evaluation_dir, "checkpoints", "checkpoint_best.pth")
+
+
+def trained_task(log_dir: str, task: str) -> str:
+    """The task a run directory was trained for: its ``hparams.json``'s
+    ``task`` (``joint`` for a joint run), else ``task``."""
+    path = os.path.join(log_dir, "hparams.json")
+    if not os.path.exists(path):
+        return task
+    with open(path) as f:
+        return json.load(f).get("task", task)
 
 
 def eval_forward(model, device, ablate_attention: bool, images,
@@ -58,6 +72,8 @@ class Predictor:
                     "msgpack checkpoints of the JAX package are not read "
                     "by the port yet)")
             ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            if trained_task(args.evaluation_dir, args.task) == "joint":
+                ckpt = task_reference_state_dict(ckpt, args.task)
             self.model.load_state_dict(
                 load_reference_state_dict(ckpt, args.task))
         else:

@@ -55,7 +55,7 @@ from ..models import resnet
 from ..models.port import load_reference_state_dict, to_reference_state_dict
 from ..models.scanpath_model import init_weights, model_from_flags
 from ..ops.sampling import random_sample, to_fix_vectors
-from ..serve.predictor import Predictor, eval_forward
+from ..serve.predictor import Predictor, eval_forward, trained_task
 from ..utils.checkpointing import CheckpointManager, restore_checkpoint
 from ..utils.logger import Logger, task_log_level
 from ..utils.recording import RecordManager
@@ -138,13 +138,15 @@ def eval_specs(ds, grid: GridSpec):
     return spec_wd, spec_wod
 
 
-def rl_config(args, rl_ds: EvaluationDataset) -> steps.RLConfig:
-    """The SCST settings of a run, the NW tables' static bounds from its
-    RL split (the train split's evaluation view), so that no
-    ground-truth symbol expansion is cut: :func:`wd_table_symbols` with
-    duration, ``pad_gt_len`` without.  A sampled rollout past the bound is
-    counted in ``reward_overflow_frac``."""
-    return steps.RLConfig(task=args.task, grid=grid_spec(args),
+def rl_config(args, rl_ds: EvaluationDataset,
+              task: str | None = None) -> steps.RLConfig:
+    """The SCST settings of a run (of ``task``, default ``--task``), the
+    NW tables' static bounds from its RL split (the train split's
+    evaluation view), so that no ground-truth symbol expansion is cut:
+    :func:`wd_table_symbols` with duration, ``pad_gt_len`` without.  A
+    sampled rollout past the bound is counted in
+    ``reward_overflow_frac``."""
+    return steps.RLConfig(task=task or args.task, grid=grid_spec(args),
                           rl_sample_number=args.rl_sample_number,
                           max_symbols_wd=wd_table_symbols(rl_ds),
                           max_symbols_wod=rl_ds.pad_gt_len,
@@ -152,18 +154,19 @@ def rl_config(args, rl_ds: EvaluationDataset) -> steps.RLConfig:
                           lambda_5=args.lambda_5)
 
 
-def log_metric_tree(logger, metrics, stds, writer=None, iteration: int = 0):
+def log_metric_tree(logger, metrics, stds, writer=None, iteration: int = 0,
+                    tag_prefix: str = ""):
     """Reference-format metric printout (``<group>-<metric>: m +- s``
     rows, reference OSIE/train.py:326-338); with ``writer``, each value
-    also as the scalar ``metrics/<group>-<metric>``."""
+    also as the scalar ``<tag_prefix>metrics/<group>-<metric>``."""
     def walk(m, s, prefix):
         for k, v in m.items():
             if isinstance(v, dict):
                 walk(v, s[k], prefix + [k])
                 continue
             if writer is not None:
-                writer.add_scalar("metrics/" + "-".join(prefix + [k]), v,
-                                  iteration)
+                writer.add_scalar(tag_prefix + "metrics/"
+                                  + "-".join(prefix + [k]), v, iteration)
             logger.info(f"{'-'.join(prefix):24}-{k:15}: {v:.4f} "
                         f"+- {s[k]:.4f}")
     walk(metrics, stds, [])
@@ -173,8 +176,6 @@ def check_ported_flags(args) -> None:
     """Raise for each flag whose feature the port does not have, naming
     the ROADMAP item that ports it."""
     refused = [
-        (args.task == "joint",
-         "--task joint: the joint trainer is not ported (ROADMAP A12)"),
         (args.mesh_size > 1 or args.model_parallel > 1,
          "--mesh_size / --model_parallel > 1: multi-GPU training is not "
          "ported (ROADMAP A13); the port trains on one card"),
@@ -193,10 +194,28 @@ def check_ported_flags(args) -> None:
             raise NotImplementedError(why)
 
 
+def load_backbone(backbone: resnet.DilatedResNet50, path: str,
+                  logger) -> None:
+    """Warm-start a ResNet-50 trunk from a torchvision-layout state dict
+    (``--checkpoint``; the reference auto-downloads
+    https://download.pytorch.org/models/resnet50-19c8e357.pth,
+    AiR/models/resnet.py:179); the sha256 prefix a torchvision filename
+    embeds must match the content."""
+    if not resnet.verify_torchvision_sha(path):
+        raise ValueError(
+            f"{path}: content does not match the sha256 prefix in its "
+            "filename (corrupted download?)")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    backbone.load_state_dict(resnet.load_torch_state_dict(sd,
+                                                          backbone.layers))
+    logger.info("Loaded pretrained backbone from %s", path)
+
+
 class EvalCore:
     """Shared decode and evaluation plumbing over ``self.model`` (eval
     forward), ``self.generator`` (the sampler's noise), ``self.device``,
-    ``self.logger`` and ``self.writer`` (None: no scalars)."""
+    ``self.logger`` and ``self.writer`` (None: no scalars), whose tags
+    start with ``self.tag_prefix``."""
 
     args: object
     task: str
@@ -206,6 +225,7 @@ class EvalCore:
     generator: torch.Generator
     logger: object
     writer: ScalarWriter | None = None
+    tag_prefix: str = ""
 
     def forward(self, batch: dict) -> dict:
         """The eval forward (no gradients, through the kernels on a card)
@@ -308,7 +328,10 @@ class EvalCore:
             self.model.train(was_training)
         if sweep is not None:
             metrics, stds = sweep.result()
-            sweep.log_overflow(self.logger, self.writer, step=iteration)
+            sweep.log_overflow(
+                self.logger, self.writer,
+                tag=f"{self.tag_prefix}metrics/wd_overflow_frac",
+                step=iteration)
         elif self.task == "air":
             metrics, stds, _ = heval.evaluation_performance_related(
                 all_gt, all_pred, all_perf, all_alloc)
@@ -328,11 +351,11 @@ class EvalCore:
 class Evaluator(EvalCore):
     """Inference-only driver for ``cli/test.py``: the model with the
     run's best checkpoint (``<log_dir>/checkpoints/checkpoint_best.pth``,
-    reference layout, loaded by ``serve/predictor.py``) on an explicit
-    device, its sampler seeded by ``--seed``, and the logger of
-    ``<log_dir>/log_test.txt``; no train loaders and no optimizer (the
-    reference test drivers touch only the eval split,
-    AiR/test.py:60-104)."""
+    reference layout, loaded by ``serve/predictor.py``; of a joint run,
+    the ``--task`` head) on an explicit device, its sampler seeded by
+    ``--seed``, and the logger of ``<log_dir>/log_test.txt``; no train
+    loaders and no optimizer (the reference test drivers touch only the
+    eval split, AiR/test.py:60-104)."""
 
     def __init__(self, args, log_dir: str, device):
         self.args = args
@@ -341,12 +364,9 @@ class Evaluator(EvalCore):
         self.device = torch.device(device)
         self.logger = Logger(join(log_dir, "log_test.txt"),
                              level=task_log_level(args.task))
-        hp_path = join(log_dir, "hparams.json")
-        if os.path.exists(hp_path):
-            with open(hp_path) as f:
-                if json.load(f).get("task", args.task) == "joint":
-                    raise NotImplementedError(
-                        "joint checkpoints are not ported (ROADMAP A12)")
+        if trained_task(log_dir, args.task) == "joint":
+            self.logger.info("Evaluating the %s head of a joint checkpoint",
+                             self.task)
         # the predictor loads the best checkpoint of --evaluation_dir
         predictor = Predictor(
             type(args)(**{**vars(args), "evaluation_dir": log_dir}),
@@ -418,7 +438,7 @@ class Trainer(EvalCore):
         self.model = model_from_flags(args)
         init_weights(self.model, args.seed)
         if args.checkpoint:
-            self._load_backbone()
+            load_backbone(self.model.backbone, args.checkpoint, self.logger)
         opt_state, step = None, 0
         if args.resume_dir != "":
             restored = restore_checkpoint(self.checkpoints_dir)
@@ -449,22 +469,6 @@ class Trainer(EvalCore):
         self.epoch_stats: dict = {}
 
     # ------------------------------------------------------------------
-    def _load_backbone(self):
-        """Warm-start the ResNet-50 trunk from a torchvision-layout state
-        dict (``--checkpoint``; the reference auto-downloads
-        https://download.pytorch.org/models/resnet50-19c8e357.pth,
-        AiR/models/resnet.py:179); the sha256 prefix a torchvision
-        filename embeds must match the content."""
-        path = self.args.checkpoint
-        if not resnet.verify_torchvision_sha(path):
-            raise ValueError(
-                f"{path}: content does not match the sha256 prefix in its "
-                "filename (corrupted download?)")
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        self.model.backbone.load_state_dict(resnet.load_torch_state_dict(
-            sd, self.model.backbone.layers))
-        self.logger.info("Loaded pretrained backbone from %s", path)
-
     def _maybe_profile(self, iteration: int):
         """Opt-in ``torch.profiler`` trace of iterations 3-8 into
         ``--profile_dir`` (a Chrome trace, ``trace_<iteration>.json``)."""

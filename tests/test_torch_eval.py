@@ -295,7 +295,7 @@ def test_cli_test_runs_on_cpu(tmp_path, rng):
         assert all(0 <= x <= 96 for x in r["X"])
         assert all(0 <= y <= 80 for y in r["Y"])
     assert "human performance" in log
-    with pytest.raises(NotImplementedError, match="joint"):
+    with pytest.raises(ValueError, match="joint run one task at a time"):
         tcli.main(["--task", "joint", "--evaluation_dir", str(run),
                    "--device", "cpu"])
 

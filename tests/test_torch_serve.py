@@ -131,7 +131,7 @@ def test_device_and_checkpoint_checks(tmp_path):
     with pytest.raises(FileNotFoundError, match="checkpoint_best.pth"):
         predict.main(argv + ["--device", "cpu", "--evaluation_dir",
                              str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="joint"):
+    with pytest.raises(ValueError, match="joint checkpoint one task at a"):
         predict.main(["--task", "joint", "--device", "cpu",
                       "--predict_images", imgs])
     with pytest.raises(ValueError, match="--target_category is required"):

@@ -519,7 +519,7 @@ def test_backbone_warm_start(synth_root, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--task", "joint"), "A12"),
+    (("--task", "joint", "--mesh_size", "2"), "A13"),
     (("--mesh_size", "2"), "A13"),
     (("--model_parallel", "2"), "A13"),
     (("--ckpt_backend", "orbax"), "A17"),
