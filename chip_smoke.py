@@ -73,7 +73,7 @@ Phases, each reporting on its own lines and with its wall time:
    the step times, images/s, the reward grids' share of the SCST step
    and the NW time inside it, NW ms a call at the reward's shapes, and
    the peak memory allocated per phase;
-8. the trainer, for each task: writes a train split of 32 images and a
+8. the trainer, for each task: writes a train split of 24 images and a
    validation split of 16 others (phase 3's frames and subject counts,
    seed 0) and runs scanpaths_tpu_torch.cli.train at full width
    (--batch 16, 5 rollouts, 10 repeats) with --epoch 2 --start_rl_epoch
@@ -122,7 +122,27 @@ Phases, each reporting on its own lines and with its wall time:
    images/s, the wait for host batches, the idle share over the task's
    last 3 steps and the peak memory; per validation and task its wall
    and the sweep's share; per checkpoint write its ms and MB;
-10. prints the kernels' JSON line, then {"ok": true, "device": ...} as
+10. the serving export: scanpaths_tpu_torch.cli.export writes, as
+   processes started together, the float32 greedy bundle at batch 8 of
+   every task from phase 3's seed checkpoint, each with --export_check
+   (the reloaded bundle equal to the live serving module), for OSIE also
+   a sampled (10 samples), a bfloat16 and a symbolic-batch bundle, and
+   the COCO head of phase 9's run.  This process loads each bundle as
+   its export ends (serve.load_bundle) and serves phase 5's 12 images
+   through cli.predict --bundle: phase 5's record checks, 16 cell
+   launches (cell ops with S = 2 for AiR) and 3 stage launches per
+   bundle call, the float32 and bfloat16 records equal to phase 5's live
+   ones exactly; the sampled bundle: one seed twice gives equal outputs,
+   equal to the live serving module's on that seed, another seed others;
+   the symbolic bundle at batch 1 and 8 (batch 8 equal to the batch-8
+   bundle, batch 1 to the live predictor exactly; through the CLI its
+   first chunk equal to the live records); the symbolic float32 bundle,
+   exported on the card, loaded on the CPU and equal to the live CPU
+   predictor on 2 images exactly.  Prints per bundle the export seconds,
+   its MB and its load seconds, and the bundle's ms per call against the
+   live forward+decode at batch 8 in float32 and bfloat16, each call of
+   both also profiled (device busy and idle share);
+11. prints the kernels' JSON line, then {"ok": true, "device": ...} as
    the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -550,16 +570,21 @@ def serving_images(tmp):
     return img_dir
 
 
+# the serving CLIs' model flags at full width (phases 5 and 10)
+FULL_WIDTH = ["--embed", "512", "--backbone_layers", "3,4,6,3", "--height",
+              "240", "--width", "320", "--map_height", "30", "--map_width",
+              "40", "--max_length", str(SEQ)]
+
+
 def run_slice(cell, block, predict, tmp, task):
     """The serving slice of one task; returns the launch counts of the
-    served runs."""
+    served runs.  Each run's records stay in ``tmp`` as
+    ``<task>_<decode>_<half>.json`` (phase 10 holds the bundles to
+    them)."""
     img_dir = serving_images(tmp)
     common = ["--task", task, "--predict_images", img_dir,
-              "--batch", str(BATCH), "--embed", "512",
-              "--backbone_layers", "3,4,6,3", "--height", "240",
-              "--width", "320", "--map_height", "30", "--map_width", "40",
-              "--max_length", str(SEQ), "--seed", "0", "--device", "cuda"] \
-        + serving_inputs(tmp, task)
+              "--batch", str(BATCH), "--seed", "0", "--device", "cuda"] \
+        + FULL_WIDTH + serving_inputs(tmp, task)
     runs = [("greedy", "false"), ("sample", "false"), ("greedy", "true"),
             ("sample", "true")]
     forwards = -(-IMAGES // BATCH)
@@ -574,7 +599,8 @@ def run_slice(cell, block, predict, tmp, task):
             records = predict.main(common + [
                 "--decode", decode, "--num_samples", "10",
                 "--half_precision", half,
-                "--predict_out", os.path.join(tmp, f"{decode}_{half}.json")])
+                "--predict_out",
+                os.path.join(tmp, f"{task}_{decode}_{half}.json")])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         dc, db = cell.cell_launches, block.block_launches
@@ -1629,8 +1655,9 @@ def check_train_parity(argv, batch):
 
 # phase 8's splits: train and validation images per task (the validation
 # split is also OSIE's and AiR's test split; COCO's test driver reads its
-# validation split), and the steps of each epoch profiled
-TRAINER_IMAGES, VALIDATION_IMAGES = 32, 16
+# validation split; 24 train images keep the whole script near 700 s
+# with phase 10), and the steps of each epoch profiled
+TRAINER_IMAGES, VALIDATION_IMAGES = 24, 16
 PROFILE_STEPS = 3
 
 
@@ -2516,7 +2543,8 @@ def run_joint_slice(cell, block, nw, tmp):
     its SCST steps against the plain NW, one trunk and the trained
     kernels against their plain versions, then cli/test.py on each head
     of the run and cli/predict.py on its COCO head.  Returns the
-    kernels' launches of the phase."""
+    kernels' launches of the phase and the run's dir (moved to
+    ``tmp/joint_run``)."""
     import shutil
 
     from scanpaths_tpu_torch.cli import predict
@@ -2632,7 +2660,312 @@ def run_joint_slice(cell, block, nw, tmp):
           f"run>: {len(records)} records from {IMAGES} images with targets "
           f"{SERVE_TARGETS}, {secs:.2f} s wall, launches {got}; {inf} "
           "sampled durations overflow float32", flush=True)
+    # the run outlives its data: phase 10 exports its COCO head
+    kept = os.path.join(tmp, "joint_run")
+    shutil.move(log_dir, kept)
     shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return total, kept
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the serving export
+# ---------------------------------------------------------------------------
+
+# where phase 10 exports and serves (a CPU rehearsal sets "cpu")
+DEVICE = "cuda"
+EXPORT_TIMEOUT = 600  # s, for all the export processes together
+TIME_ITERS = 10       # bundle and live calls a side, in turns
+
+
+def model_flags(test_argv, task):
+    """The serving flags of a task's phase-3 run at full width."""
+    argv = test_argv[task]
+    return ["--task", task, "--evaluation_dir",
+            argv[argv.index("--evaluation_dir") + 1], "--seed", "0"] \
+        + FULL_WIDTH
+
+
+def export_jobs(test_argv, joint_run, out):
+    """cli/export.py's argv of each bundle phase 10 serves: every task's
+    float32 greedy bundle at batch BATCH from phase 3's seed checkpoint,
+    with --export_check; for OSIE also a sampled one (10 samples), a
+    bfloat16 one and a symbolic batch, and phase 9's joint run's COCO
+    head, whose checks run in this process."""
+    jobs = {task: model_flags(test_argv, task) + ["--export_check", "true"]
+            for task in TASKS}
+    osie = model_flags(test_argv, "osie") + ["--export_check", "false"]
+    jobs["osie_sample"] = osie + ["--decode", "sample", "--num_samples",
+                                  "10"]
+    jobs["osie_bf16"] = osie + ["--half_precision", "true"]
+    jobs["osie_sym"] = osie + ["--export_batch", "sym"]
+    jobs["joint_coco"] = model_flags(test_argv, "coco") + [
+        "--evaluation_dir", joint_run, "--export_check", "false"]
+    return {name: ["--export_batch", str(BATCH), "--device", DEVICE] + argv
+            + ["--export_dir", os.path.join(out, name)]
+            for name, argv in jobs.items()}
+
+
+@contextlib.contextmanager
+def export_bundles(jobs, out):
+    """Starts ``python -m scanpaths_tpu_torch.cli.export`` for every job,
+    all together (tracing is single-threaded host work, one process a
+    job), and yields an iterator over the jobs in the order they finish:
+    (name, the bundle's dir, the CLI's export seconds (trace and save),
+    the process's wall seconds, the bundle's MB).  Raises with the log of
+    a job that failed or whose --export_check did not pass; on leaving,
+    stops any process left."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    procs = {}
+
+    def finished():
+        deadline = time.perf_counter() + EXPORT_TIMEOUT
+        while procs:
+            done = [n for n, (p, _, _) in procs.items()
+                    if p.poll() is not None]
+            if not done:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"cli.export {sorted(procs)} ran "
+                                         f"past {EXPORT_TIMEOUT} s")
+                time.sleep(0.2)
+                continue
+            for name in done:
+                proc, log, t0 = procs.pop(name)
+                wall = time.perf_counter() - t0
+                log.close()
+                with open(log.name) as f:
+                    text = f.read()
+                checked = jobs[name][jobs[name].index("--export_check")
+                                     + 1] == "true"
+                if proc.returncode != 0 or checked != (
+                        "[export] check ok" in text):
+                    raise AssertionError(f"cli.export {name} exited "
+                                         f"{proc.returncode}:\n"
+                                         f"{text[-3000:]}")
+                d = jobs[name][jobs[name].index("--export_dir") + 1]
+                yield (name, d, float(text.split(" bytes in ")[1]
+                                      .split(" s ")[0]), wall,
+                       _mib(os.path.getsize(os.path.join(d, "serve.pt2"))))
+    try:
+        for name, argv in jobs.items():
+            log = open(os.path.join(out, f"{name}.log"), "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "scanpaths_tpu_torch.cli.export",
+                 *argv], cwd=repo, env=env, stdout=log,
+                stderr=subprocess.STDOUT), log, time.perf_counter())
+        yield finished()
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _program_streams(fn):
+    """The signal-stream count of each cell op in a loaded bundle's
+    program (its smaps input's last dim)."""
+    op = torch.ops.scanpaths_tpu_torch.cell_step.default
+    return [n.args[3].meta["val"].shape[-1] for n in fn.module.graph.nodes
+            if n.target is op]
+
+
+def _exactly(name, got, want):
+    for k in ("fix", "fix_len", "action_probs"):
+        if not torch.equal(got[k].cpu(), want[k].cpu()):
+            raise AssertionError(f"{name}: {k} differs")
+
+
+def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
+                     joint_run, smi):
+    """Phase 10: cli/export.py writes every bundle of export_jobs (the
+    exports run as processes, together), then this process loads each
+    with serve.load_bundle and serves phase 5's images through
+    cli/predict.py --bundle, counting the kernels launched inside the
+    exported programs, and holds the records to the live CLI's (phase
+    5's files) exactly; the OSIE bundles' own checks (module docstring);
+    the bundle's ms per call against the live forward+decode at batch
+    BATCH.  Returns the kernels' launches of the phase."""
+    from scanpaths_tpu_torch.core.config import parse_opt
+    img_dir = serving_images(tmp)
+    out = os.path.join(tmp, "bundles")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    loaded, real_load = {}, predict.load_bundle
+
+    def load(path, device=None):
+        t1 = time.perf_counter()
+        fn, mf = real_load(path, device)
+        loaded[path] = (fn, mf, time.perf_counter() - t1)
+        return fn, mf
+    total = {"cell_step": 0, "stage_apply": 0}
+    calls = -(-IMAGES // BATCH)
+    serving = {task: task for task in TASKS}
+    serving.update(osie_sample="osie", osie_bf16="osie", osie_sym="osie",
+                   joint_coco="coco")
+    served, bundles = {}, {}
+
+    def serve(name, d, secs, wall, mb):
+        """cli/predict.py --bundle on the served images; checks the
+        records and the launches (16 cell, cell ops with S streams, and 3
+        stage a call)."""
+        task = serving[name]
+        cell.cell_launches = block.block_launches = 0
+        with mock.patch.object(predict, "load_bundle", load):
+            records = predict.main(
+                ["--task", task, "--bundle", d, "--predict_images", img_dir,
+                 "--batch", str(BATCH), "--seed", "0", "--device", DEVICE,
+                 "--predict_out", os.path.join(tmp, f"bundle_{name}.json")]
+                + serving_inputs(tmp, task))
+        torch.cuda.synchronize()
+        fn, mf, load_s = loaded[d]
+        got = {"cell_step": cell.cell_launches,
+               "stage_apply": block.block_launches}
+        _expect(f"bundle {name}", got, {"cell_step": SEQ * calls,
+                                        "stage_apply": 3 * calls})
+        streams = _program_streams(fn)
+        want_s = 2 if task == "air" else 1
+        if streams != [want_s] * SEQ:
+            raise AssertionError(f"bundle {name}: cell ops with streams "
+                                 f"{streams}, expected {SEQ} with S={want_s}")
+        _check_records(records, IMAGES, 10 if mf["decode"] == "sample"
+                       else 1, 320, 240)
+        for k in total:
+            total[k] += got[k]
+        served[name], bundles[name] = records, (fn, mf)
+        print(f"[export] {name}: cli.export {secs:.1f} s (trace and save; "
+              f"its process {wall:.1f} s), bundle {mb:.1f} MB, load "
+              f"{load_s:.1f} s; --bundle served {len(records)} records in "
+              f"{calls} calls, launches {got} (cell ops S={want_s})",
+              flush=True)
+
+    # each bundle is served as its export ends, while the others run
+    t0 = time.perf_counter()
+    with export_bundles(export_jobs(test_argv, joint_run, out), out) as done:
+        for job in done:
+            serve(*job)
+    print(f"[export] {len(served)} cli.export processes (the float32 ones "
+          f"with --export_check) and their bundles served in "
+          f"{time.perf_counter() - t0:.1f} s wall", flush=True)
+
+    for name, half in (("osie", "false"), ("air", "false"),
+                       ("coco", "false"), ("osie_bf16", "true")):
+        task = serving[name]
+        with open(os.path.join(tmp, f"{task}_greedy_{half}.json")) as f:
+            if served[name] != json.load(f):
+                raise AssertionError(f"bundle {name}: records differ from "
+                                     "the live cli.predict's")
+        print(f"[export] {name}: its {len(served[name])} records equal live "
+              f"cli.predict --half_precision {half}'s (phase 5) exactly",
+              flush=True)
+    from scanpaths_tpu_torch.serve.export import ServeModule, serving_fn
+    images = forward_inputs("osie")[0]
+    f32_fn, bf16_fn = bundles["osie"][0], bundles["osie_bf16"][0]
+    flags = model_flags(test_argv, "osie")
+
+    def live(pred, x):
+        s = pred.decode(pred.forward(x), "greedy", 1)
+        return {"fix": s.fix[0], "fix_len": s.fix_len[0],
+                "action_probs": s.action_probs[0]}
+
+    def counted(label, calls, run):
+        """``run()``'s bundle calls, with their launches checked and
+        added to the phase's."""
+        cell.cell_launches = block.block_launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        _expect(label, {"cell_step": cell.cell_launches,
+                        "stage_apply": block.block_launches},
+                {"cell_step": SEQ * calls, "stage_apply": 3 * calls})
+        total["cell_step"] += SEQ * calls
+        total["stage_apply"] += 3 * calls
+        return out
+    pred = predictor_mod.Predictor(parse_opt(flags), DEVICE)
+
+    # OSIE sampled: the seed decides the draw, as the live serving module
+    # draws it
+    fn, mf = bundles["osie_sample"]
+    a, b, c = counted("osie_sample seeds", 3, lambda: (
+        fn(1, images), fn(1, images), fn(2, images)))
+    _exactly("osie_sample, seed 1 twice", b, a)
+    _exactly("osie_sample against the live serving module", a, serving_fn(
+        ServeModule(pred.model, pred.grid, "sample").eval(), mf,
+        DEVICE)(1, images))
+    if torch.equal(a["fix"], c["fix"]):
+        raise AssertionError("osie_sample: seeds 1 and 2 drew the same "
+                             "scanpaths")
+    print(f"[export] osie_sample: {tuple(a['fix'].shape)} fixations a call; "
+          "seed 1 twice gives equal outputs, equal to the live serving "
+          "module's on seed 1; seed 2 other ones", flush=True)
+
+    # OSIE symbolic batch: batch 8 against the batch-8 bundle, batch 1
+    # against the live predictor at batch 1; the CLI's chunks of 8 and 4
+    # against live cli.predict, whose tail chunk runs padded to 8
+    sym_fn, mf = bundles["osie_sym"]
+    one, eight = counted("osie_sym batches 1 and 8", 2, lambda: (
+        sym_fn(images[:1]), sym_fn(images)))
+    _exactly("osie_sym at batch 8 against the batch-8 bundle", eight,
+             f32_fn(images))
+    _exactly("osie_sym at batch 1 against the live predictor", one,
+             live(pred, images[:1]))
+    with open(os.path.join(tmp, "osie_greedy_false.json")) as f:
+        want = json.load(f)
+    if served["osie_sym"][:BATCH] != want[:BATCH]:
+        raise AssertionError("osie_sym: the first chunk's records differ "
+                             "from live cli.predict's")
+    tail = [(g["X"] == w["X"] and g["Y"] == w["Y"], max(
+        [abs(x - y) / max(abs(y), 1e-30) for x, y in zip(g["T"], w["T"])]
+        or [0.0])) for g, w in zip(served["osie_sym"][BATCH:], want[BATCH:])]
+    print(f"[export] osie_sym (inputs {mf['inputs'][0]['shape']}): batch 8 "
+          f"equals the batch-8 bundle and batch 1 the live predictor at batch"
+          f" 1 exactly; through the CLI the first chunk's {BATCH} records "
+          f"equal live cli.predict's exactly, the tail chunk of "
+          f"{len(tail)} (run at batch {len(tail)}, the live CLI pads it to "
+          f"{BATCH}): positions equal in {sum(t[0] for t in tail)} records, "
+          f"durations within rtol {max(t[1] for t in tail):.3g}",
+          flush=True)
+
+    # the bundle's ms per call against the live forward+decode
+    for half, fn in (("false", f32_fn), ("true", bf16_fn)):
+        if half == "true":
+            del pred
+            pred = predictor_mod.Predictor(parse_opt(
+                flags + ["--half_precision", half]), DEVICE)
+        kernels = cell.cell_launches, block.block_launches
+        bundle_ms, live_ms = _pair_ms(lambda: fn(images),
+                                      lambda: live(pred, images), TIME_ITERS)
+        n = 2 + 4 * TIME_ITERS
+        if (cell.cell_launches - kernels[0], block.block_launches
+                - kernels[1]) != (n * SEQ, n * 3):
+            raise AssertionError("timed calls: unexpected launches")
+        dtype = "bfloat16" if half == "true" else "float32"
+        print(f"[export] osie {dtype} batch {BATCH}: bundle {bundle_ms:.2f} "
+              f"ms a call, live forward+decode {live_ms:.2f} ms "
+              f"({bundle_ms / live_ms - 1:+.1%}); {smi}", flush=True)
+        profile_call(lambda: fn(images), f"bundle osie N={BATCH} {dtype}")
+        profile_call(lambda: live(pred, images),
+                     f"live forward+decode osie N={BATCH} {dtype}")
+    del pred
+
+    # the float32 bundle exported on the card, loaded on the CPU, against
+    # the live predictor on the CPU: both run the plain versions
+    t1 = time.perf_counter()
+    cpu_fn, _ = real_load(os.path.join(out, "osie_sym"), "cpu")
+    load_cpu = time.perf_counter() - t1
+    cpu_pred = predictor_mod.Predictor(parse_opt(flags), "cpu")
+    t1 = time.perf_counter()
+    got = cpu_fn(images[:2])
+    secs_cpu = time.perf_counter() - t1
+    _exactly("osie_sym on the CPU against the live CPU predictor", got,
+             live(cpu_pred, images[:2]))
+    del cpu_pred, cpu_fn
+    print(f"[export] osie_sym loaded on the CPU in {load_cpu:.1f} s: 2 images"
+          f" in {secs_cpu:.2f} s, equal to the live CPU predictor exactly "
+          f"({torch.get_num_threads()} threads)", flush=True)
+
+    loaded.clear()
+    bundles.clear()
     torch.cuda.empty_cache()
     return total
 
@@ -2737,8 +3070,14 @@ def main():
             _phase(f"trainer {task}", t0)
 
         t0 = time.perf_counter()
-        add(run_joint_slice(cell, block, nw, tmp))
+        counts, joint_run = run_joint_slice(cell, block, nw, tmp)
+        add(counts)
         _phase("joint trainer", t0)
+
+        t0 = time.perf_counter()
+        add(run_export_slice(cell, block, predict, predictor, tmp, test_argv,
+                             joint_run, smi))
+        _phase("export", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),

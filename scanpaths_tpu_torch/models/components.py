@@ -386,6 +386,18 @@ def fuse_bank_heads(bank_k, bank_b, task_ids, head_raw: dict, map_h: int,
             for key in parts[0]}
 
 
+def compose_bank_heads(bank_k, bank_b, head_raw: dict, map_h: int,
+                       map_w: int) -> dict:
+    """Every bank entry's composed conditioner+head, each composed once
+    on its own: the fields of :func:`fuse_cond_head` with a leading [K]
+    axis.  Gathered by task id, ``{k: v[task_ids]}``, they are
+    :func:`fuse_bank_heads`'s values exactly, with no data-dependent
+    shape (the serving export keeps them and gathers per call)."""
+    parts = [fuse_cond_head(bank_k[i], bank_b[i], head_raw, map_h, map_w)
+             for i in range(bank_k.shape[0])]
+    return {key: torch.stack([p[key] for p in parts]) for key in parts[0]}
+
+
 def _sample_conv(x, kernel, strides=(1, 1), padding=((0, 0), (0, 0)),
                  dtype=None):
     """:func:`conv2d` with one HWIO kernel per sample (``kernel`` [N, kh,

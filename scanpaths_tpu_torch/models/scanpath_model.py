@@ -53,6 +53,7 @@ from .components import (
     SpatialAttention,
     XGates,
     apply_fused_cond_head,
+    compose_bank_heads,
     conv2d,
     dense,
     fuse_bank_heads,
@@ -103,21 +104,37 @@ class ScanpathModel(nn.Module):
         return {"spat": spat, "spat_conv": self.spatial_att.project(spat),
                 "sem": sem, "sem_proj": self.semantic_att.project(sem)}
 
-    def _fused_heads(self, task_ids):
-        """The composed conditioner+head per stream, once per forward:
-        one dict per stream, or for COCO one with a leading [N] axis
-        (each sample's bank entry)."""
+    def composed_heads(self) -> list[dict]:
+        """The composed conditioner+head of every stream, from the
+        weights alone: one :func:`fuse_cond_head` dict per stream, or
+        for COCO one whose fields lead with the bank's [K] axis
+        (:func:`compose_bank_heads`).  A caller that keeps them passes
+        them to :meth:`forward` as ``heads``."""
         raw = self.head.raw()
         if self.task == "coco":
-            if task_ids is None:
-                raise ValueError("the coco model needs task_ids")
             (bank_k, bank_b), = self.conditioner.kernels()
-            return [fuse_bank_heads(bank_k, bank_b, task_ids, raw,
-                                    self.map_h, self.map_w)]
+            return [compose_bank_heads(bank_k, bank_b, raw, self.map_h,
+                                       self.map_w)]
         return [fuse_cond_head(k, b, raw, self.map_h, self.map_w)
                 for k, b in self.conditioner.kernels()]
 
-    def _decode(self, x, attention_maps, task_ids, differentiable: bool):
+    def _fused_heads(self, task_ids, heads=None):
+        """The composed conditioner+head per stream, once per forward:
+        one dict per stream, or for COCO one with a leading [N] axis
+        (each sample's bank entry).  ``heads`` (:meth:`composed_heads`)
+        replaces the composition: COCO's are gathered by task id."""
+        if self.task != "coco":
+            return heads if heads is not None else self.composed_heads()
+        if task_ids is None:
+            raise ValueError("the coco model needs task_ids")
+        if heads is not None:
+            return [{k: v[task_ids] for k, v in heads[0].items()}]
+        (bank_k, bank_b), = self.conditioner.kernels()
+        return [fuse_bank_heads(bank_k, bank_b, task_ids, self.head.raw(),
+                                self.map_h, self.map_w)]
+
+    def _decode(self, x, attention_maps, task_ids, differentiable: bool,
+                heads=None):
         """The decoder from the trunk's grid ``x`` [N, H, W, 2048]: one
         (z [N, T, A] logits, mu, sigma2 [N, T], amap [N, T, H, W]) per
         stream, all float32.  Each step's cell is ``ops.cell.cell_step``,
@@ -153,7 +170,7 @@ class ScanpathModel(nn.Module):
         else:
             kh = self.lstm.gate_kernel()
         h, c = torch.zeros_like(visual), torch.zeros_like(visual)
-        fused = self._fused_heads(task_ids)
+        fused = self._fused_heads(task_ids, heads)
         slots = torch.arange(t_len + 1, device=x.device)
 
         outs = [{"z": [], "mu": [], "sigma2": [], "amap": []}
@@ -208,7 +225,7 @@ class ScanpathModel(nn.Module):
 
     @torch.no_grad()
     def forward(self, images=None, attention_maps=None, task_ids=None,
-                features=None):
+                features=None, heads=None):
         """images: NHWC [N, height, width, 3] float32; attention_maps:
         [N, H, W, 1] (AiR, COCO; zeros when None); task_ids: [N] int
         (COCO) -> the eval output dict (see the module docstring).  The
@@ -216,11 +233,21 @@ class ScanpathModel(nn.Module):
         ``ops.block.stage_apply`` and each decode step through
         ``ops.cell.cell_step``.  ``features`` [N, H, W, 2048], the
         trunk's grid, replaces the trunk (a head without one needs
-        them)."""
+        them); ``heads``, :meth:`composed_heads` kept by the caller,
+        replaces the per-forward composition of the conditioner and
+        head."""
+        return self.eval_forward(images, attention_maps, task_ids, features,
+                                 heads)
+
+    def eval_forward(self, images=None, attention_maps=None, task_ids=None,
+                     features=None, heads=None):
+        """:meth:`forward` without its ``no_grad`` context, for a caller
+        that holds one: the serving export traces this (a switch of grad
+        mode inside a traced region splits the exported graph)."""
         x = features if features is not None else resnet.fused_forward(
             self._trunk(), images, self.dtype)
-        return self._eval_outputs(self._decode(x, attention_maps, task_ids,
-                                               differentiable=False))
+        return self._eval_outputs(self._decode(
+            x, attention_maps, task_ids, differentiable=False, heads=heads))
 
     def forward_train(self, images=None, attention_maps=None,
                       task_ids=None, performances=None, train: bool = True,

@@ -8,7 +8,9 @@ A stage's uniform (non-downsample) blocks each compute
 with BatchNorm folded into the weights (inference semantics).  Tensors
 are dense NHWC.  :func:`stage_apply` runs the hand-written CUDA kernel
 (``csrc/block.cu``) on CUDA tensors and :func:`stage_apply_plain`, the
-same computation in plain PyTorch ops, on CPU tensors.
+same computation in plain PyTorch ops, on CPU tensors, both as the
+registered op ``scanpaths_tpu_torch::stage_apply`` (:func:`stage_apply_op`),
+which importing this module registers.
 """
 
 from __future__ import annotations
@@ -117,26 +119,22 @@ def _k_contiguous(w):
     return w.transpose(1, 2).contiguous()
 
 
-def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
-    """Run a stack of uniform bottleneck blocks on a dense NHWC input.
+@torch.library.custom_op("scanpaths_tpu_torch::stage_apply",
+                         mutates_args=(), device_types="cpu")
+def stage_apply_op(x: torch.Tensor, dil: int, w1: torch.Tensor,
+                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                   w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """The registered op behind :func:`stage_apply`.  Its CPU kernel is
+    :func:`stage_apply_plain`, its CUDA kernel ``csrc/block.cu``; no
+    other device has one.  Being an op, it is traced by
+    ``torch.export`` as one node, so an exported program launches the
+    CUDA kernel (``serve/export.py``)."""
+    return stage_apply_plain(x, dil, w1, b1, w2, b2, w3, b3)
 
-    x: [N, H, W, C]; weights stacked per block (:func:`stack_stage_params`).
-    Returns the stage output [N, H, W, C].  A CPU tensor runs
-    :func:`stage_apply_plain`; a CUDA tensor runs ``csrc/block.cu``
-    (C % 32 == 0, M % 32 == 0, contiguous and 16-byte aligned) or
-    raises.  Either raises under grad mode when an input requires grad
-    (no backward; the training trunk is ``models.resnet``'s stock-op
-    forward).  The kernel reads the weights transposed (K contiguous):
-    the wrapper transposes each weight tensor once and keeps the result
-    on it.
-    """
+
+@stage_apply_op.register_kernel("cuda")
+def _stage_apply_cuda(x, dil, w1, b1, w2, b2, w3, b3):
     global block_launches
-    _build.refuse_grad("stage_apply", x, w1, b1, w2, b2, w3, b3)
-    if x.device.type == "cpu":
-        return stage_apply_plain(x, dil, w1, b1, w2, b2, w3, b3)
-    _check(x, dil, w1, b1, w2, b2, w3, b3)
-    if x.device.type != "cuda":
-        raise ValueError(f"no stage kernel for device {x.device}")
     n, h, w, c = x.shape
     nb, _, m = w1.shape
     if c % 32 or m % 32:
@@ -167,6 +165,31 @@ def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
             src = dst
     block_launches += 1
     return src
+
+
+@stage_apply_op.register_fake
+def _stage_apply_fake(x, dil, w1, b1, w2, b2, w3, b3):
+    return torch.empty_like(x)
+
+
+def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
+    """Run a stack of uniform bottleneck blocks on a dense NHWC input.
+
+    x: [N, H, W, C]; weights stacked per block (:func:`stack_stage_params`).
+    Returns the stage output [N, H, W, C].  A CPU tensor runs
+    :func:`stage_apply_plain`; a CUDA tensor runs ``csrc/block.cu``
+    (C % 32 == 0, M % 32 == 0, contiguous and 16-byte aligned) or
+    raises; both through :func:`stage_apply_op`.  Either raises under
+    grad mode when an input requires grad (no backward; the training
+    trunk is ``models.resnet``'s stock-op forward).  The kernel reads
+    the weights transposed (K contiguous): the CUDA kernel's wrapper
+    transposes each weight tensor once and keeps the result on it.
+    """
+    _build.refuse_grad("stage_apply", x, w1, b1, w2, b2, w3, b3)
+    _check(x, dil, w1, b1, w2, b2, w3, b3)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no stage kernel for device {x.device}")
+    return stage_apply_op(x, dil, w1, b1, w2, b2, w3, b3)
 
 
 def stage_grid(n: int, h: int, w: int, c: int, m: int, dtype) -> list[int]:

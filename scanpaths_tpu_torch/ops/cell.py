@@ -15,7 +15,9 @@ the TPU kernel's flat padded-row layout is not carried over.
 :func:`cell_step` runs the hand-written CUDA kernel (``csrc/cell.cu``)
 on CUDA tensors and :func:`cell_step_plain`, the same computation in
 plain PyTorch ops, on CPU tensors.  Both update ``c`` in place and
-return the new hidden state in a separate tensor.  The kernel reads the
+return the new hidden state in a separate tensor.  Both run as the
+registered op ``scanpaths_tpu_torch::cell_step`` (:func:`cell_step_op`),
+which importing this module registers.  The kernel reads the
 gate kernel packed K-contiguous (:func:`pack_gate_kernel`); the wrapper
 packs each ``kh`` tensor once and keeps the packed form on it, so the 16
 steps of a forward, which share one ``kh``, pack it once.
@@ -92,31 +94,22 @@ def cell_step_plain(h, c, xg, smaps, kps, kh):
     return hn.to(h.dtype), c
 
 
-def cell_step(h, c, xg, smaps, kps, kh):
-    """One ConvLSTM step; returns ``(h', c)`` with ``c`` updated in place.
+@torch.library.custom_op("scanpaths_tpu_torch::cell_step",
+                         mutates_args=("c",), device_types="cpu")
+def cell_step_op(h: torch.Tensor, c: torch.Tensor, xg: torch.Tensor,
+                 smaps: torch.Tensor, kps: torch.Tensor,
+                 kh: torch.Tensor) -> torch.Tensor:
+    """The registered op behind :func:`cell_step`: returns h' and updates
+    ``c`` in place.  Its CPU kernel is :func:`cell_step_plain`, its CUDA
+    kernel ``csrc/cell.cu``; no other device has one.  Being an op, it
+    is traced by ``torch.export`` as one node, so an exported program
+    launches the CUDA kernel (``serve/export.py``)."""
+    return cell_step_plain(h, c, xg, smaps, kps, kh)[0]
 
-    h, c:   [N, H, W, C]     hidden and cell state
-    xg:     [N, H, W, 4C]    x-gate pre-activations, gate order i, f, o, g,
-                             with the h-gate and signal biases folded in
-    smaps:  [N, H, W, S]     spatial signal maps, one channel per stream
-    kps:    [N, S, 9, 3C]    per-sample contracted signal kernels
-                             (``SignalGates.kp``), taps row-major
-    kh:     [3, 3, C, 4C]    h-gate conv kernel, HWIO
 
-    All in one dtype (float32 or bfloat16) on one device.  A CPU tensor
-    runs :func:`cell_step_plain`; a CUDA tensor runs ``csrc/cell.cu``
-    (C % 32 == 0, S in {1, 2}, contiguous and 16-byte aligned) or
-    raises.  Either raises under grad mode when an input requires grad
-    (no backward; ``components.FusedConvLSTMCell.step`` is the
-    differentiable step).
-    """
+@cell_step_op.register_kernel("cuda")
+def _cell_step_cuda(h, c, xg, smaps, kps, kh):
     global cell_launches
-    _build.refuse_grad("cell_step", h, c, xg, smaps, kps, kh)
-    _check(h, c, xg, smaps, kps, kh)
-    if h.device.type == "cpu":
-        return cell_step_plain(h, c, xg, smaps, kps, kh)
-    if h.device.type != "cuda":
-        raise ValueError(f"no cell kernel for device {h.device}")
     n, hh, ww, ch = h.shape
     if ch % 32:
         raise ValueError(f"the cell kernel needs C % 32 == 0, got C={ch}")
@@ -132,7 +125,37 @@ def cell_step(h, c, xg, smaps, kps, kh):
                  torch.cuda.current_stream(h.device).cuda_stream)
     _build.check("sp_cell_step", err)
     cell_launches += 1
-    return h_out, c
+    return h_out
+
+
+@cell_step_op.register_fake
+def _cell_step_fake(h, c, xg, smaps, kps, kh):
+    return torch.empty_like(h)
+
+
+def cell_step(h, c, xg, smaps, kps, kh):
+    """One ConvLSTM step; returns ``(h', c)`` with ``c`` updated in place.
+
+    h, c:   [N, H, W, C]     hidden and cell state
+    xg:     [N, H, W, 4C]    x-gate pre-activations, gate order i, f, o, g,
+                             with the h-gate and signal biases folded in
+    smaps:  [N, H, W, S]     spatial signal maps, one channel per stream
+    kps:    [N, S, 9, 3C]    per-sample contracted signal kernels
+                             (``SignalGates.kp``), taps row-major
+    kh:     [3, 3, C, 4C]    h-gate conv kernel, HWIO
+
+    All in one dtype (float32 or bfloat16) on one device.  A CPU tensor
+    runs :func:`cell_step_plain`; a CUDA tensor runs ``csrc/cell.cu``
+    (C % 32 == 0, S in {1, 2}, contiguous and 16-byte aligned) or
+    raises; both through :func:`cell_step_op`.  Either raises under grad
+    mode when an input requires grad (no backward;
+    ``components.FusedConvLSTMCell.step`` is the differentiable step).
+    """
+    _build.refuse_grad("cell_step", h, c, xg, smaps, kps, kh)
+    _check(h, c, xg, smaps, kps, kh)
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no cell kernel for device {h.device}")
+    return cell_step_op(h, c, xg, smaps, kps, kh), c
 
 
 def cell_grid(n: int, hh: int, ww: int, ch: int, dtype) -> list[int]:

@@ -49,7 +49,7 @@ COPIES = ("core/config.py", "core/grid.py", "data/transforms.py",
           "metrics/scanmatch.py", "metrics/vame.py", "metrics/multimatch.py",
           "metrics/evaluation.py", "utils/logger.py", "utils/recording.py",
           "data/prefetch.py", "data/packed_cache.py", "native/__init__.py",
-          "native/sp_native.cpp")
+          "native/sp_native.cpp", "data/preprocess.py", "cli/preprocess.py")
 
 
 @pytest.mark.parametrize("path", COPIES)
