@@ -73,7 +73,7 @@ Phases, each reporting on its own lines and with its wall time:
    the step times, images/s, the reward grids' share of the SCST step
    and the NW time inside it, NW ms a call at the reward's shapes, and
    the peak memory allocated per phase;
-8. the trainer, for each task: writes a train split of 24 images and a
+8. the trainer, for each task: writes a train split of 16 images and a
    validation split of 16 others (phase 3's frames and subject counts,
    seed 0) and runs scanpaths_tpu_torch.cli.train at full width
    (--batch 16, 5 rollouts, 10 repeats) with --epoch 2 --start_rl_epoch
@@ -92,11 +92,11 @@ Phases, each reporting on its own lines and with its wall time:
    epoch (the record's iteration, Adam's step count and every lr scalar
    go on; the lr scalar is the lr the optimizer applied, so the resumed
    steps are held to the --epoch 3 schedule).  Prints per epoch the steps/s and images/s, the wait for host
-   batches, the device's idle share over the epoch's last 3 steps
+   batches, the device's idle share over the epoch's last 2 steps
    (torch.profiler) and the peak memory; per validation its wall and the
    sweep's share; per checkpoint write its ms and MB;
 9. the joint trainer: writes a joint data root in
-   tools/make_synth_data.py's layout (16 train and 16 validation images
+   tools/make_synth_data.py's layout (8 train and 8 validation images
    a task, phase 3's frames and subject counts, seed 0) and runs
    scanpaths_tpu_torch.cli.train --task joint at full width (one trunk,
    three heads; --batch 16, 5 rollouts, 10 repeats) with --epoch 2
@@ -120,7 +120,7 @@ Phases, each reporting on its own lines and with its wall time:
    cli.predict on its COCO head (12 images, three target categories,
    phase 5's record checks).  Prints per epoch and task the steps,
    images/s, the wait for host batches, the idle share over the task's
-   last 3 steps and the peak memory; per validation and task its wall
+   last 2 steps and the peak memory; per validation and task its wall
    and the sweep's share; per checkpoint write its ms and MB;
 10. the serving export: scanpaths_tpu_torch.cli.export writes, as
    processes started together, the float32 greedy bundle at batch 8 of
@@ -142,8 +142,33 @@ Phases, each reporting on its own lines and with its wall time:
    its MB and its load seconds, and the bundle's ms per call against the
    live forward+decode at batch 8 in float32 and bfloat16, each call of
    both also profiled (device busy and idle share);
-11. prints the kernels' JSON line, then {"ok": true, "device": ...} as
-   the last line.
+11. data parallel, as torchrun launches it (this script re-entered
+   under ``python -m torch.distributed.run --standalone`` as each rank's
+   program): (a) one rank on the card over NCCL and two ranks sharing it
+   over gloo (NCCL refuses two ranks on one device) take the same steps
+   from the same weights, for OSIE and AiR at full width in float32:
+   2 supervised steps at global batch 16 and 2 SCST steps at global
+   batch 4 with 5 rollouts (each rank its rows; the rollout noise drawn
+   for the global batch from one generator seed), from optimizer step 2
+   with Adam's second moments preset (a first Adam step from zero
+   moments is lr times the sign of the gradient, which rounding flips);
+   checks every metric of every step (rtol 1e-5; the gradient norm 1e-1,
+   see DP_GRAD_NORM_RTOL), the parameters and
+   BN running statistics after the first step (rtol 1e-4, atol 1e-6;
+   after the last, reported), no cell or stage
+   launch and 2 NW launches a SCST step and stream on each rank, each
+   held to the plain NW exactly; prints every gap, the step ms of both
+   sides and the gradient all-reduce's ms inside a step (two ranks
+   sharing one card: no scaling number); (b) cli/train.py's main under
+   torchrun on two ranks sharing the card with phase 8's OSIE split and
+   flags and --mesh_size 0: the artifacts written once, by rank 0, the
+   record and every lr scalar equal to phase 8's, the supervised losses
+   against phase 8's single process (the first step's within rtol 1e-5,
+   every step's within 1e-1, see DP_RUN_DRIFT_RTOL), rank 0's validation
+   launches (16 cell and 3 stage a forward), every SCST NW call exact on
+   both ranks; prints the SCST scalars beside phase 8's (not asserted);
+12. prints the kernels' JSON line (phase 11's workers' launches added),
+   then {"ok": true, "device": ...} as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.
@@ -157,6 +182,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1655,10 +1681,10 @@ def check_train_parity(argv, batch):
 
 # phase 8's splits: train and validation images per task (the validation
 # split is also OSIE's and AiR's test split; COCO's test driver reads its
-# validation split; 24 train images keep the whole script near 700 s
-# with phase 10), and the steps of each epoch profiled
-TRAINER_IMAGES, VALIDATION_IMAGES = 24, 16
-PROFILE_STEPS = 3
+# validation split; 16 train images keep the whole script inside its
+# time with phases 10 and 11), and the steps of each epoch profiled
+TRAINER_IMAGES, VALIDATION_IMAGES = 16, 16
+PROFILE_STEPS = 2
 
 
 def write_trainer_split(tmp, task):
@@ -1708,16 +1734,16 @@ def _expect(label, got, want):
 
 
 @contextlib.contextmanager
-def trainer_probes(cell, block, nw, tr, device_eval, ck):
+def trainer_probes(cell, block, nw, tr, device_eval, ck, trace=True):
     """Wraps the port's Trainer for phase 8 and yields the list of its
     records, one dict per training epoch, validation, human baseline and
     checkpoint write: the launch counts of each (zeroed at its start,
     read at its end), the epoch's stats (``Trainer.epoch_stats``), its
     peak memory, the NW calls of an SCST epoch (their inputs and outputs
     cloned), a torch.profiler window over the epoch's last PROFILE_STEPS
-    steps (device busy and span), the wall times of each validation and
-    of the device sweep inside it, and each checkpoint write's ms and
-    file sizes.  The seed duration head's last conv is scaled by 0.01
+    steps (device busy and span; without ``trace`` none, and NaN),
+    the wall times of each validation and of the device sweep inside it,
+    and each checkpoint write's ms and file sizes.  The seed duration head's last conv is scaled by 0.01
     for every task, as _train_model does for phase 7: COCO's seed
     LogNormal scale overflows float32 in the SCST sampler (ROADMAP C7),
     and from OSIE's seed head the SCST epochs can drive sigma2 = exp(t)
@@ -1751,14 +1777,17 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck):
             out = real["train_epoch"](self, iteration, epoch)
         stamps = window["stamps"]
         free = len(stamps) - PROFILE_STEPS    # the steps before the window
-        # the trace is read after the epoch, outside its timing
-        _, streams = _device_events(window["done"])
-        busy = _union_ms([iv for ivs in streams.values() for iv in ivs])
+        busy = span = float("nan")
+        if trace:
+            span = window["span"]
+            # the trace is read after the epoch, outside its timing
+            _, streams = _device_events(window["done"])
+            busy = _union_ms([iv for ivs in streams.values() for iv in ivs])
         records.append(dict(
             kind="epoch", rl=rl, stats=dict(self.epoch_stats),
             launches=_minus(_launches(cell, block, nw), before),
             peak=torch.cuda.max_memory_allocated(), nw_calls=calls,
-            busy=busy, span=window["span"],
+            busy=busy, span=span,
             free_rate=(free - 1) / (stamps[free - 1] - stamps[0])
             if free > 1 else float("nan")))
         return out
@@ -1766,6 +1795,8 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck):
     def maybe_profile(self, iteration):
         k = iteration - window["first"]         # 1-based step of the epoch
         window["stamps"].append(time.perf_counter())
+        if not trace:
+            return
         if k == max(window["n"] - PROFILE_STEPS, 1) and \
                 window["prof"] is None:
             torch.cuda.synchronize()
@@ -1968,15 +1999,17 @@ def check_trainer_launches(task, label, records, n_streams, repeats,
                 "nw_scores_bins": 2 * val_forwards})
 
 
-def run_trainer_slice(cell, block, nw, argv):
+def run_trainer_slice(cell, block, nw, argv, keep=None):
     """Phase 8 for one task: cli/train.py at full width on the card (one
     supervised epoch, then one SCST epoch, each followed by a validation
     with the device sweep), its artifacts, scalars and launch counts,
     every NW call of its SCST steps against the plain NW, then
     cli/test.py on the run (it must read the run's own
     checkpoint_best.pth), and for OSIE a resumed third epoch (the record's
-    iteration, Adam's step count and the lr scalar go on).  Returns the
-    kernels' launches of the phase."""
+    iteration, Adam's step count and the lr scalar go on).  ``keep``, a
+    dict, receives the first run's record and scalars (phase 11 holds its
+    data-parallel run to them).  Returns the kernels' launches of the
+    phase."""
     import shutil
 
     from scanpaths_tpu_torch.cli import test as test_cli
@@ -2028,6 +2061,8 @@ def run_trainer_slice(cell, block, nw, argv):
     if (record["epoch"], record["iteration"]) != \
             (1, sup_steps + rl_steps - 1):
         raise AssertionError(f"{task} record {record}")
+    if keep is not None:
+        keep.update(record=dict(record), scalars=scalars)
 
     # the test driver on the run's own checkpoint_best.pth
     opened = []
@@ -2111,7 +2146,7 @@ def run_trainer_slice(cell, block, nw, argv):
     return total
 
 
-JOINT_IMAGES = 16        # train and validation images a task
+JOINT_IMAGES = 8         # train and validation images a task
 # the joint data root's dirs per task: images, fixations, maps
 JOINT_LAYOUT = {"osie": ("stimuli", "fixations", None),
                 "air": ("stimuli", "fixations", "attention"),
@@ -2970,6 +3005,442 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data parallel
+# ---------------------------------------------------------------------------
+
+# the script the phase's torchrun workers run (this file; a CPU rehearsal
+# points it at a wrapper that stubs the card calls first)
+SCRIPT = os.path.abspath(__file__)
+DP_TASKS = ("osie", "air")
+DP_STEPS = 2                 # supervised and SCST steps a task and side
+DP_START, DP_NU = 2, 1e-4    # optimizer step and preset second moments
+DP_METRIC_RTOL = 1e-5
+# The gradient norm is the one metric read from the float32 gradient of
+# the BN-trained trunk, whose rounding depends on how the batch is split
+# over the ranks (and varies run to run: cuDNN's backward is not
+# deterministic), and the steps after the first start from weights that
+# already part in the last bits, which that gradient amplifies (the SCST
+# gradient is a sum of advantages of either sign over nearly equal
+# rollouts).  In runs of this phase on an NVIDIA H100 80GB HBM3 at 700 W,
+# with every loss and reward within 2.4e-6, world 1 and world 2 parted
+# by 5.6e-6 (OSIE) and 1.7e-4 (AiR) in the first step's gradient norm
+# and by up to 2.7e-2 at OSIE's last SCST step.  So the gradient norm is
+# held at DP_GRAD_NORM_RTOL, which a gradient summed once too few or too
+# many times (a change by tens of percent) still fails, and the state is
+# held tight after the first step and reported after the last.
+DP_GRAD_NORM_RTOL = 1e-1
+DP_STATE_TOL = dict(rtol=1e-4, atol=1e-6)
+# A run's supervised losses against phase 8's single process: the first
+# step sees the same weights and batch at DP_METRIC_RTOL; from the first
+# update on, Adam from zero moments moves each parameter by about lr
+# times the SIGN of its gradient, the two runs' float32 gradients part in
+# the last bits (one BN formula a side, the batch split), near-zero
+# gradients flip, and the losses drift apart step by step: by 2.6e-3
+# (loss/loss) and 4.2e-2 (loss/loss_duration) over OSIE's 15 steps (a
+# run of this phase on an NVIDIA H100 80GB HBM3 at 700 W).  Every step
+# is held at DP_RUN_DRIFT_RTOL.
+DP_RUN_DRIFT_RTOL = 1e-1
+DP_TIMEOUT = 600             # s, a torchrun call
+
+
+def _torchrun(nproc, args, timeout=DP_TIMEOUT):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc SCRIPT args``, in a session of its own that is killed whole on
+    the timeout.  Raises with the output's tail unless it exits 0."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", SCRIPT, *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"torchrun {args[0]} ({nproc} ranks) passed "
+                             f"{timeout} s:\n{out[-4000:]}")
+    if proc.returncode:
+        raise AssertionError(f"torchrun {args[0]} ({nproc} ranks) exited "
+                             f"{proc.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def _rank_out(out_dir, rank):
+    with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+        return json.load(f)
+
+
+def _save_state(state, out_dir, name):
+    torch.save({k: v.detach().cpu() for k, v in
+                state.model.state_dict().items()},
+               os.path.join(out_dir, f"{name}.pt"))
+
+
+def dp_steps_worker(out_dir, job_path):
+    """One rank of phase 11(a), under torchrun: for each task, DP_STEPS
+    supervised steps at the global --batch and DP_STEPS SCST steps at
+    --batch / 4 (DP_STEPS global batches each, this rank's rows) from the
+    seed weights of _train_model, from optimizer step DP_START with Adam's
+    second moments preset to DP_NU; the metrics, the step and all-reduce
+    times, the launch counts; every SCST NW call held to the plain NW
+    exactly.  Rank 0 saves each task's state dict after the first step and
+    after the last; each rank writes ``rank<r>.json``."""
+    import argparse
+
+    from scanpaths_tpu_torch.data.datasets import (EvaluationDataset, Loader,
+                                                   SupervisedDataset)
+    from scanpaths_tpu_torch.ops import block, cell, nw
+    from scanpaths_tpu_torch.train import mesh, steps, trainer
+    with open(job_path) as f:
+        job = json.load(f)
+    m = mesh.make_mesh(argparse.Namespace(mesh_size=0), DEVICE)
+    res = dict(rank=m.rank, world=m.world, backend=m.backend,
+               device=str(m.device), note=m.note, tasks={})
+    real_reduce = mesh.reduce_gradients
+    for task in DP_TASKS:
+        args = _train_args(job[task])
+        cfg = trainer.data_config(args)
+        sup_loader = Loader(SupervisedDataset(task, cfg, "train"),
+                            batch_size=args.batch, shuffle=True,
+                            seed=args.seed, drop_last=True,
+                            process_index=m.rank, process_count=m.world)
+        rl_loader = Loader(EvaluationDataset(task, cfg, "train"),
+                           batch_size=max(args.batch // 4, 1), shuffle=True,
+                           seed=args.seed + 1, drop_last=True,
+                           process_index=m.rank, process_count=m.world)
+        rl_cfg = trainer.rl_config(args, rl_loader.dataset)
+        sup_batches = list(itertools.islice(sup_loader, DP_STEPS))
+        rl_batches = list(itertools.islice(rl_loader, DP_STEPS))
+        state = steps.TrainState.create(_train_model(args), args,
+                                        len(sup_loader), len(rl_loader),
+                                        step=DP_START, device=m.device)
+        for st in state.optimizer.state.values():
+            st["exp_avg_sq"].fill_(DP_NU)
+        gen = torch.Generator(device=m.device).manual_seed(args.seed)
+        reduce_ms = []
+
+        def timed_reduce(params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_reduce(params)
+            torch.cuda.synchronize()
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics, step_ms, calls = [], [], []
+        cell.cell_launches = block.block_launches = nw.nw_launches = 0
+        with mock.patch.object(mesh, "reduce_gradients", timed_reduce):
+            for rl, batches in ((False, sup_batches), (True, rl_batches)):
+                for b in batches:
+                    db = steps.device_batch(b, m.device, for_rl=rl)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if rl:
+                        with _timed_calls(nw, "nw_scores_bins", calls,
+                                          keep_args=True):
+                            out = steps.rl_step(state, db, rl_cfg,
+                                                generator=gen)
+                    else:
+                        out = steps.supervised_step(state, db, args.lambda_1)
+                    metrics.append(_finite(task, f"rank {m.rank} step",
+                                           out))
+                    step_ms.append(1e3 * (time.perf_counter() - t0))
+                    if m.is_primary and len(metrics) == 1:
+                        _save_state(state, out_dir, f"{task}_first")
+        launches = _launches(cell, block, nw)
+        for i, (_, _, a, got) in enumerate(calls):
+            _exact(f"{task} rank {m.rank} SCST NW call {i + 1}", got,
+                   nw.nw_scores_bins_plain(*a))
+        if m.is_primary:
+            _save_state(state, out_dir, task)
+        res["tasks"][task] = dict(
+            metrics=metrics, step_ms=step_ms, reduce_ms=reduce_ms,
+            launches=launches, nw_checked=len(calls),
+            apply_cd=rl_cfg.apply_cd,
+            rows=[int(sup_batches[0]["images"].shape[0]),
+                  int(rl_batches[0]["images"].shape[0])],
+            params=sum(p.numel() for p in state.model.parameters()))
+        del state, calls
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{m.rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.close_mesh(m)
+
+
+def dp_train_worker(out_dir, argv):
+    """One rank of phase 11(b), under torchrun: cli/train.py's main on
+    ``argv`` inside phase 8's probes (the duration head scaled as phase 8
+    scales it; no profiler), every SCST NW call held to the plain NW
+    exactly; writes ``rank<r>.json`` with the records and launches."""
+    from scanpaths_tpu_torch.cli import train as train_cli
+    from scanpaths_tpu_torch.metrics import device_eval
+    from scanpaths_tpu_torch.ops import block, cell, nw
+    from scanpaths_tpu_torch.train import trainer as tr
+    from scanpaths_tpu_torch.utils import checkpointing as ck
+    rank = int(os.environ["RANK"])
+    with trainer_probes(cell, block, nw, tr, device_eval, ck,
+                        trace=False) as recs, \
+            contextlib.redirect_stdout(io.StringIO()):
+        before = _launches(cell, block, nw)
+        train_cli.main(argv)
+        got = _minus(_launches(cell, block, nw), before)
+    checked = 0
+    for rec in recs:
+        for i, (_, _, a, out) in enumerate(rec.pop("nw_calls", [])):
+            _exact(f"rank {rank} SCST NW call {i + 1}", out,
+                   nw.nw_scores_bins_plain(*a))
+            checked += 1
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, records=recs, launches=got,
+                       nw_checked=checked), f)
+
+
+def _state_gap(a, b):
+    """(max abs gap, the largest gap past DP_STATE_TOL's bound, its key)
+    over two state dicts' float tensors."""
+    worst, excess, key = 0.0, -math.inf, None
+    for k, va in a.items():
+        if not va.is_floating_point():
+            continue
+        d = (va.double() - b[k].double()).abs()
+        e = d - DP_STATE_TOL["rtol"] * b[k].double().abs()
+        worst = max(worst, float(d.max()))
+        if float(e.max()) > excess:
+            excess, key = float(e.max()), k
+    return worst, excess, key
+
+
+def check_dp_steps(tmp, test_argv, smi):
+    """Phase 11(a): the steps of dp_steps_worker on one rank over NCCL and
+    on two ranks sharing the card over gloo, from the same weights and
+    global batches: every metric within DP_METRIC_RTOL, the parameters and
+    BN running statistics after the steps within DP_STATE_TOL, no cell or
+    stage launch, 2 NW launches a SCST step and stream on each rank, each
+    held to the plain NW exactly.  Returns the launches of the workers."""
+    root = os.path.join(tmp, "dp_steps")
+    os.makedirs(root)
+    job = os.path.join(root, "job.json")
+    with open(job, "w") as f:
+        json.dump({t: test_argv[t] for t in DP_TASKS}, f)
+    total = dict.fromkeys(("cell_step", "stage_apply", "nw_scores_bins"), 0)
+    runs = {}
+    for world in (1, 2):
+        out = os.path.join(root, f"world{world}")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        _torchrun(world, ["--dp-steps", out, job])
+        runs[world] = (out, [_rank_out(out, r) for r in range(world)],
+                       time.perf_counter() - t0)
+    (out1, (w1,), s1), (out2, w2, s2) = runs[1], runs[2]
+    # one rank on its card talks NCCL, two sharing it gloo (on the CPU,
+    # where a rehearsal runs, both gloo)
+    if w1["backend"] != ("nccl" if DEVICE == "cuda" else "gloo") or \
+            any(r["backend"] != "gloo" for r in w2):
+        raise AssertionError(f"backends {w1['backend']}, "
+                             f"{[r['backend'] for r in w2]}")
+    print(f"[dp] world 1: {w1['device']} over {w1['backend']}; world 2: "
+          f"{w2[0]['device']}, {w2[1]['device']} over {w2[0]['backend']}"
+          + (f" ({w2[0]['note']})" if w2[0]["note"] else "")
+          + f"; torchrun calls {s1:.1f} s and {s2:.1f} s wall", flush=True)
+    for task in DP_TASKS:
+        want = w1["tasks"][task]
+        streams = 2 if task == "air" else 1
+        nw_want = DP_STEPS * (2 * streams + 2 * want["apply_cd"])
+        for r in [w1] + w2:
+            got = r["tasks"][task]
+            for k in total:
+                total[k] += got["launches"][k]
+            _expect(f"{task} data-parallel steps, world {r['world']} rank "
+                    f"{r['rank']}", got["launches"], {
+                        "cell_step": 0, "stage_apply": 0,
+                        "nw_scores_bins": nw_want})
+            if got["nw_checked"] != nw_want:
+                raise AssertionError(f"{task}: {got['nw_checked']} NW calls "
+                                     "checked")
+        rel = {}
+        for r in w2:
+            for i, (g, w) in enumerate(zip(r["tasks"][task]["metrics"],
+                                           want["metrics"])):
+                if set(g) != set(w):
+                    raise AssertionError(f"{task} step {i}: metric keys")
+                for k in w:
+                    rel[k] = max(rel.get(k, 0.0), abs(g[k] - w[k])
+                                 / max(abs(w[k]), 1e-30))
+        bound = {k: DP_GRAD_NORM_RTOL if k == "grad_norm" else DP_METRIC_RTOL
+                 for k in rel}
+        worst = max(rel, key=lambda k: rel[k] / bound[k])
+        gaps = {}
+        for name in (f"{task}_first", task):
+            gaps[name] = _state_gap(
+                torch.load(os.path.join(out2, f"{name}.pt")),
+                torch.load(os.path.join(out1, f"{name}.pt")))
+        gap, excess, key = gaps[f"{task}_first"]
+        w2t = [r["tasks"][task] for r in w2]
+        print(f"[dp] {task} {DP_STEPS} supervised steps at batch "
+              f"{want['rows'][0]} and {DP_STEPS} SCST steps at batch "
+              f"{want['rows'][1]} (x "
+              f"{_train_args(test_argv[task]).rl_sample_number} rollouts), "
+              f"{want['params'] / 1e6:.1f} M parameters: metrics "
+              f"of world 2 (each rank) against world 1, largest relative gap "
+              f"{rel[worst]:.3g} ({worst}; rtol {bound[worst]}): "
+              + ", ".join(f"{k} {v:.2g}" for k, v in sorted(rel.items()))
+              + "; grad_norm by step, world 1 / world 2: "
+              + ", ".join(f"{w['grad_norm']:.6g}/{g['grad_norm']:.6g}"
+                          for w, g in zip(want["metrics"],
+                                          w2[0]["tasks"][task]["metrics"]))
+              + f"; parameters and BN running statistics after the first "
+              f"step: largest abs gap {gap:.3g}, largest excess over rtol "
+              f"{DP_STATE_TOL['rtol']} {excess:.3g} ({key}; atol "
+              f"{DP_STATE_TOL['atol']}); after the last: largest abs gap "
+              f"{gaps[task][0]:.3g}, largest excess {gaps[task][1]:.3g} "
+              f"({gaps[task][2]}; reported)", flush=True)
+        print(f"[dp] {task} step ms, {smi}: world 1 (one rank, "
+              f"{w1['backend']}) "
+              + ", ".join(f"{v:.1f}" for v in want["step_ms"])
+              + "; world 2 (two ranks sharing one card over gloo; no scaling "
+              "number) rank 0 "
+              + ", ".join(f"{v:.1f}" for v in w2t[0]["step_ms"])
+              + ", rank 1 " + ", ".join(f"{v:.1f}" for v in w2t[1]["step_ms"])
+              + " (supervised steps, then SCST); the gradient all-reduce "
+              f"inside a step ({want['params'] * 4 / 1e6:.1f} MB f32): world "
+              "1 " + ", ".join(f"{v:.2f}" for v in want["reduce_ms"])
+              + " ms, world 2 rank 0 "
+              + ", ".join(f"{v:.2f}" for v in w2t[0]["reduce_ms"]) + " ms",
+              flush=True)
+        if rel[worst] > bound[worst]:
+            raise AssertionError(f"{task}: world 2 metric {worst} off by "
+                                 f"{rel[worst]:.3g}")
+        if excess > DP_STATE_TOL["atol"]:
+            raise AssertionError(f"{task}: world 2 state {key} off by "
+                                 f"{excess:.3g} past rtol")
+    shutil.rmtree(root)
+    return total
+
+
+def check_dp_run(tmp, phase8):
+    """Phase 11(b): cli/train.py under torchrun on two ranks sharing the
+    card (gloo) with phase 8's OSIE split and flags (written again from
+    seed 0) and --mesh_size 0.  Checks the artifacts (written once, by
+    rank 0), the record's iteration and every lr scalar against phase 8's
+    single-process run exactly, its supervised losses (the first step
+    within DP_METRIC_RTOL, every step within DP_RUN_DRIFT_RTOL),
+    rank 0's launches (16 cell and 3 stage a validation forward, NW as
+    phase 8), rank 1's (NW alone, in its SCST steps), every SCST NW call
+    exact on both ranks; prints the SCST scalars beside phase 8's.
+    Returns the workers' launches."""
+    argv = write_trainer_split(tmp, "osie")
+    args = _train_args(argv)
+    log_root = argv[argv.index("--log_root") + 1]
+    out = os.path.join(tmp, "dp_run")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    _torchrun(2, ["--dp-train", out, "--", *argv, "--mesh_size", "0"])
+    secs = time.perf_counter() - t0
+    ranks = [_rank_out(out, r) for r in range(2)]
+    sup_steps = TRAINER_IMAGES * TEST_SUBJECTS["osie"] // args.batch
+    rl_steps = TRAINER_IMAGES // max(args.batch // 4, 1)
+    val_forwards = -(-VALIDATION_IMAGES // args.batch)
+    check_trainer_launches("osie", "data parallel rank 0",
+                           ranks[0]["records"], 1, args.eval_repeat_num,
+                           val_forwards, rl_steps,
+                           args.apply_consistency_divergence)
+    kinds = [r["kind"] for r in ranks[1]["records"]]
+    if kinds != ["epoch", "epoch"]:
+        raise AssertionError(f"rank 1 ran {kinds}")
+    check_trainer_launches("osie", "data parallel rank 1",
+                           ranks[1]["records"], 1, args.eval_repeat_num,
+                           val_forwards, rl_steps,
+                           args.apply_consistency_divergence)
+    for r in ranks:
+        if r["nw_checked"] != 2 * rl_steps:
+            raise AssertionError(f"rank {r['rank']}: {r['nw_checked']} SCST "
+                                 "NW calls checked")
+    log_dir = _run_dir(log_root)
+    record, scalars = check_run("osie", log_dir)
+    twice = {(t, s) for t, by in scalars.items() for s, v in by.items()
+             if len(v) != 1}
+    with open(os.path.join(log_dir, "log_train.txt")) as f:
+        heads = f.read().count("The args corresponding")
+    if twice or heads != 1:
+        raise AssertionError(f"written more than once: {sorted(twice)[:5]}, "
+                             f"{heads} argument listings")
+    if (record["epoch"], record["iteration"]) != \
+            (phase8["record"]["epoch"], phase8["record"]["iteration"]):
+        raise AssertionError(f"record {record}, phase 8 {phase8['record']}")
+    if scalars["learning_rate"] != phase8["scalars"]["learning_rate"]:
+        raise AssertionError("lr scalars differ from phase 8's")
+    by_step = {}
+    for tag in ("loss/loss", "loss/loss_actions", "loss/loss_duration"):
+        want = phase8["scalars"][tag]
+        if sorted(scalars[tag]) != sorted(want):
+            raise AssertionError(f"{tag} steps differ from phase 8's")
+        by_step[tag] = [abs(scalars[tag][s][0] - want[s][0])
+                        / abs(want[s][0]) for s in sorted(want)]
+    first = {k: v[0] for k, v in by_step.items()}
+    rel = {k: max(v) for k, v in by_step.items()}
+    print(f"[dp] torchrun --nproc_per_node 2: cli/train.py's main --task "
+          f"osie --mesh_size 0 (two ranks sharing one card over gloo, "
+          f"phase 8's split and flags, --batch {args.batch} global): "
+          f"{secs:.1f} s wall; artifacts once, by rank 0; record "
+          f"{record['epoch']}/{record['iteration']} and all "
+          f"{len(scalars['learning_rate'])} lr scalars equal to phase 8's; "
+          f"{sup_steps} supervised steps' losses against phase 8's single "
+          f"process: the first step's relative gap "
+          + ", ".join(f"{k} {v:.3g}" for k, v in first.items())
+          + f" (rtol {DP_METRIC_RTOL}), the largest over the steps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f" (rtol {DP_RUN_DRIFT_RTOL}; loss/loss by step "
+          + ", ".join(f"{v:.2g}" for v in by_step["loss/loss"])
+          + f"); launches rank 0 {ranks[0]['launches']},"
+          f" rank 1 {ranks[1]['launches']}; {ranks[0]['nw_checked']} + "
+          f"{ranks[1]['nw_checked']} SCST NW calls held to the plain NW "
+          "exactly", flush=True)
+    for rec in ranks[0]["records"]:
+        if rec["kind"] == "epoch":
+            st = rec["stats"]
+            print(f"[dp] rank 0 epoch {st['epoch']} "
+                  f"({'SCST' if rec['rl'] else 'supervised'}): "
+                  f"{st['steps']} steps in {st['seconds']:.2f} s, "
+                  f"{st['steps_per_sec']:.3f} steps/s steady "
+                  f"({st['steps_per_sec'] * st['images_per_step']:.2f} "
+                  "images/s, two ranks sharing one card over gloo); peak "
+                  f"allocated {_mib(rec['peak']):.0f} MiB", flush=True)
+        elif rec["kind"] == "validation":
+            print(f"[dp] rank 0 validation (device sweep): "
+                  f"{rec['wall']:.2f} s wall; launches {rec['launches']}",
+                  flush=True)
+    first_rl = phase8["record"]["iteration"] - rl_steps + 1
+    for tag in ("rl_loss", "reward_hmean"):
+        print(f"[dp] SCST {tag} by step, data parallel against phase 8 (not "
+              "asserted: the rollouts may part once the weights differ in "
+              "the last bits): " + ", ".join(
+                  f"{scalars[tag][s][0]:.5g}/{phase8['scalars'][tag][s][0]:.5g}"
+                  for s in range(first_rl, first_rl + rl_steps)), flush=True)
+    bad = {k: v for k, v in first.items() if not v <= DP_METRIC_RTOL}
+    bad.update({k: v for k, v in rel.items() if not v <= DP_RUN_DRIFT_RTOL})
+    if bad:
+        raise AssertionError(f"data-parallel supervised losses: {bad}")
+    shutil.rmtree(os.path.dirname(log_root))
+    shutil.rmtree(out)
+    total = dict.fromkeys(("cell_step", "stage_apply", "nw_scores_bins"), 0)
+    for r in ranks:
+        for k in total:
+            total[k] += r["launches"][k]
+    return total
+
+
+def run_dp_slice(tmp, test_argv, phase8, smi):
+    """Phase 11: check_dp_steps, then check_dp_run.  Returns the kernels'
+    launches of the phase's workers."""
+    t0 = time.perf_counter()
+    total = check_dp_steps(tmp, test_argv, smi)
+    print(f"[dp] step equivalence: {time.perf_counter() - t0:.1f} s wall",
+          flush=True)
+    for k, v in check_dp_run(tmp, phase8).items():
+        total[k] += v
+    return total
+
+
 def print_ptxas(log):
     """One line per compiled kernel from ptxas -v: its name with template
     arguments, registers, spills and shared memory."""
@@ -2999,6 +3470,19 @@ def _phase(name, t0):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    if len(sys.argv) > 1:
+        # one rank of phase 11, started by _torchrun
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mode, out = sys.argv[1:3]
+        if mode == "--dp-steps":
+            dp_steps_worker(out, sys.argv[3])
+        elif mode == "--dp-train" and sys.argv[3] == "--":
+            dp_train_worker(out, sys.argv[4:])
+        else:
+            raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+        return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3063,10 +3547,12 @@ def main():
                 check_train_parity(test_argv[task], sup_batch)
             _phase(f"training {task}", t0)
 
+        phase8 = {}
         for task in TASKS:
             t0 = time.perf_counter()
             add(run_trainer_slice(cell, block, nw,
-                                  write_trainer_split(tmp, task)))
+                                  write_trainer_split(tmp, task),
+                                  keep=phase8 if task == "osie" else None))
             _phase(f"trainer {task}", t0)
 
         t0 = time.perf_counter()
@@ -3078,6 +3564,10 @@ def main():
         add(run_export_slice(cell, block, predict, predictor, tmp, test_argv,
                              joint_run, smi))
         _phase("export", t0)
+
+        t0 = time.perf_counter()
+        add(run_dp_slice(tmp, test_argv, phase8, smi))
+        _phase("data parallel", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),

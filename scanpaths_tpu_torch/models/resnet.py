@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import block as block_ops
+from ..train import mesh
 
 # (planes, first-block stride, dilation) per stage after the dilation
 # patch — the JAX package's _STAGES table
@@ -99,17 +100,52 @@ def batch_norm(x, bn: nn.BatchNorm2d, train: bool):
     mean and the BIASED batch variance, and the running statistics
     updated in place to ``0.9 running + 0.1 batch`` with that biased
     variance (``nn.BatchNorm2d``'s own update takes the unbiased one);
-    else normalised by the running statistics.  Statistics in float32,
-    the output in x's dtype."""
+    else normalised by the running statistics.  Under data parallel the
+    batch is the GLOBAL one, as under the JAX package's mesh
+    (:func:`_global_batch_norm`).  Statistics in float32, the output in
+    x's dtype."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
+    if mesh.active():
+        return _global_batch_norm(x, bn)
     with torch.no_grad():
         var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                    correction=0)
+        _update_running(bn, mean, var)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def _update_running(bn: nn.BatchNorm2d, mean, var) -> None:
+    with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
-    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def _global_batch_norm(x, bn: nn.BatchNorm2d):
+    """Training-mode BN over the global batch of every rank, in two
+    passes: the per-channel sums and the pixel count, then the sums of
+    squares about the global mean, each all-reduced with its gradient
+    (so the backward reaches every rank's inputs), in float32 (or x's
+    wider type).  The running statistics stay equal on all ranks.  One
+    pass over ``E[x^2] - E[x]^2`` would cancel where a channel's mean is
+    large against its spread, in the backward too (its gradient through
+    the sum of squares is ``2x``, the centred ``2(x - mean)`` only after
+    the cancellation); the centred sums keep the backward's terms
+    centred."""
+    c = x.shape[1]
+    xs = x.to(torch.promote_types(x.dtype, torch.float32))
+    count = torch.full((1,), x.numel() // c, dtype=xs.dtype,
+                       device=x.device)
+    sums = mesh.all_reduce_with_grad(torch.cat([xs.sum((0, 2, 3)), count]))
+    n = sums[-1]
+    mean = sums[:c] / n
+    d = xs - mean[None, :, None, None]
+    var = mesh.all_reduce_with_grad((d * d).sum((0, 2, 3))) / n
+    _update_running(bn, mean.detach(), var.detach())
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    y = d * scale[None, :, None, None] + bn.bias[None, :, None, None]
+    return y.to(x.dtype)
 
 
 def _ceil_maxpool(x):

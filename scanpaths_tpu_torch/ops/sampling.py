@@ -98,16 +98,21 @@ def random_sample_from_noise(probs, mu, sigma2, grid: GridSpec, gumbel,
 
 
 def sample_noise(probs, mu, generator: torch.Generator,
-                 rollouts: int | None = None):
+                 rollouts: int | None = None, batch: int | None = None):
     """(standard Gumbel noise shaped like ``probs``, standard normal
     noise shaped like ``mu``), drawn from ``generator`` on their device;
-    with ``rollouts`` both lead with an [R] axis."""
+    with ``rollouts`` both lead with an [R] axis; with ``batch`` their
+    batch axis (the first of ``probs``) has that size (a draw for the
+    global batch of a data-parallel step)."""
     lead = () if rollouts is None else (rollouts,)
-    u = torch.rand(lead + tuple(probs.shape), generator=generator,
+    rows = () if batch is None else (batch,)
+    pshape = rows + tuple(probs.shape[len(rows):])
+    mshape = rows + tuple(mu.shape[len(rows):])
+    u = torch.rand(lead + pshape, generator=generator,
                    device=probs.device, dtype=probs.dtype)
     tiny = torch.finfo(probs.dtype).tiny
     gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-    normal = torch.randn(lead + tuple(mu.shape), generator=generator,
+    normal = torch.randn(lead + mshape, generator=generator,
                          device=mu.device, dtype=mu.dtype)
     return gumbel, normal
 

@@ -27,6 +27,13 @@ the validation decodes in run order, as the JAX trainer splits one key
 for both.  AiR's validation decodes both streams, good then poor, from
 one eval forward.
 
+Data parallel as the single-task trainer (``train/trainer.py``): each
+rank loads its slice of every task's global batches, in the same
+round-robin order (every rank draws the same shuffles); rank 0 writes
+the run and validates every head.  The idle heads' zero-filled
+gradients are reduced with the others, so decay and Adam move them
+alike on every rank.
+
 Data layout under ``--joint_data_root`` (``tools/make_synth_data.py``'s):
   osie/stimuli osie/fixations
   air/stimuli air/fixations air/attention
@@ -35,28 +42,22 @@ Data layout under ``--joint_data_root`` (``tools/make_synth_data.py``'s):
 
 from __future__ import annotations
 
-import datetime
-import json
-import os
-import shutil
 import time
 from os.path import join
 
 import scipy.stats
 import torch
 
-from ..data.datasets import (DataConfig, EvaluationDataset, Loader,
-                             SupervisedDataset)
+from ..data.datasets import DataConfig
 from ..data.prefetch import prefetch
 from ..models.port import (load_joint_reference_state_dict,
                            to_joint_reference_state_dict)
 from ..models.scanpath_model import TaskView, init_weights, model_from_flags
-from ..utils.checkpointing import CheckpointManager, restore_checkpoint
-from ..utils.logger import Logger
-from ..utils.recording import RecordManager
-from . import steps
-from .trainer import (EvalCore, ScalarWriter, adam_step, check_ported_flags,
-                      grid_spec, load_backbone, log_metric_tree, rl_config)
+from ..utils.checkpointing import restore_checkpoint
+from . import mesh, steps
+from .trainer import (EvalCore, RunFiles, adam_step, check_ported_flags,
+                      grid_spec, load_backbone, log_metric_tree, rl_config,
+                      train_loaders)
 
 TASKS = ("osie", "air", "coco")
 SUPERVISED_TAGS = {k: f"loss/{k}" for k in ("loss", "loss_actions",
@@ -87,9 +88,10 @@ def task_data_config(args, task: str) -> DataConfig:
 
 class TaskContext(EvalCore):
     """One task of a joint run: its loaders (seeded as the single-task
-    trainer's), its SCST settings and the evaluation plumbing over the
-    joint model's head of the task, with the trainer's noise generator,
-    logger and writer; its scalars are tagged ``<task>/``."""
+    trainer's; the validation loader on rank 0 only), its SCST settings
+    and the evaluation plumbing over the joint model's head of the task,
+    with the trainer's noise generator, logger and writer; its scalars
+    are tagged ``<task>/``."""
 
     def __init__(self, trainer: "JointTrainer", task: str):
         args = trainer.args
@@ -98,18 +100,9 @@ class TaskContext(EvalCore):
         self.logger, self.writer = trainer.logger, trainer.writer
         self.tag_prefix = f"{task}/"
         self.model = TaskView(trainer.model, task)
-        cfg = task_data_config(args, task)
-        self.train_loader = Loader(
-            SupervisedDataset(task, cfg, split="train"),
-            batch_size=args.batch, shuffle=True, seed=args.seed,
-            drop_last=True)
-        self.train_rl_loader = Loader(
-            EvaluationDataset(task, cfg, split="train"),
-            batch_size=max(args.batch // 4, 1), shuffle=True,
-            seed=args.seed + 1, drop_last=True)
-        self.validation_loader = Loader(
-            EvaluationDataset(task, cfg, split="validation"),
-            batch_size=args.batch, shuffle=False)
+        self.train_loader, self.train_rl_loader, self.validation_loader = \
+            train_loaders(args, task, task_data_config(args, task),
+                          trainer.mesh)
         self.rl_cfg = rl_config(args, self.train_rl_loader.dataset, task)
 
 
@@ -125,9 +118,10 @@ def round_robin(loaders: dict):
                 del live[t]
 
 
-class JointTrainer:
+class JointTrainer(RunFiles):
     """The joint run of ``cli/train.py --task joint`` on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU), one rank of a data-parallel
+    run when a process group is initialised (``train/mesh.py``)."""
 
     def __init__(self, args, device="cuda"):
         if args.task != "joint":
@@ -137,33 +131,8 @@ class JointTrainer:
         self.args = args
         self.grid = grid_spec(args)
         self.device = torch.device(device)
-
-        if args.resume_dir == "":
-            date = str(datetime.datetime.now())
-            date = date[:date.rfind(":")].replace("-", "") \
-                .replace(":", "").replace(" ", "_")
-            self.log_dir = join(args.log_root, "log_joint_" + date)
-        else:
-            self.log_dir = args.resume_dir
-        self.checkpoints_dir = join(self.log_dir, "checkpoints")
-        os.makedirs(self.checkpoints_dir, exist_ok=True)
-        if args.resume_dir == "":
-            with open(join(self.log_dir, "hparams.json"), "w") as f:
-                json.dump(dict(vars(args)), f, indent=2)
-        self.logger = Logger(join(self.log_dir, "log_train.txt"))
-        self.logger.info("The args corresponding to training process are: ")
-        for key, value in vars(args).items():
-            self.logger.info(f"{key:20}: {value}")
-
-        self.writer = ScalarWriter(self.log_dir)
-        self.record_manager = RecordManager(self.log_dir)
-        if args.resume_dir == "":
-            self.record_manager.init_record()
-        else:
-            self.record_manager.load()
-        self.checkpoint_manager = CheckpointManager(
-            self.checkpoints_dir, mode="max",
-            best_metric=self.record_manager.get_best_metric())
+        self.mesh = mesh.current(self.device)
+        self.open_run(args, "log_joint_")
 
         self.model = model_from_flags(args)
         init_weights(self.model, args.seed)
@@ -292,24 +261,17 @@ class JointTrainer:
         args = self.args
         start_epoch = self.record_manager.get_epoch()
         iteration = self.record_manager.get_iteration()
-        if args.resume_dir == "":
+        primary = self.mesh.is_primary
+        if args.resume_dir == "" and primary:
             self.human_baseline()
         for epoch in range(start_epoch + 1, args.epoch):
             iteration = self.train_epoch(iteration, epoch)
-            cur = self.validation(iteration, args.device_eval)
-            self.logger.info(f"joint metric: {cur:.4f}")
-            self.checkpoint_manager.step(
-                cur,
-                to_joint_reference_state_dict(self.model.state_dict(),
-                                              self.model.map_h,
-                                              self.model.map_w),
-                self.state.optimizer.state_dict())
-            self.record_manager.save(
-                epoch, iteration, self.checkpoint_manager.get_best_metric())
-            if args.supervised_save and epoch == args.start_rl_epoch - 1:
-                dst = self.log_dir.rstrip("/") + "_supervised_save"
-                if os.path.exists(dst):
-                    shutil.rmtree(dst)
-                shutil.copytree(self.log_dir, dst)
-        self.writer.close()
-        return self.checkpoint_manager.get_best_metric()
+            cur, model_state = None, None
+            if primary:
+                cur = self.validation(iteration, args.device_eval)
+                self.logger.info(f"joint metric: {cur:.4f}")
+                model_state = to_joint_reference_state_dict(
+                    self.model.state_dict(), self.model.map_h,
+                    self.model.map_w)
+            self.end_epoch(epoch, cur, iteration, model_state)
+        return self.close_run()

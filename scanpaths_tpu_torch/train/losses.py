@@ -4,6 +4,9 @@ quirks kept:
 
 * every mask-normalised loss divides by the GLOBAL mask sum over the
   whole batch (reference loss.py:13,31,36,44), not per-sample counts;
+  under data parallel that sum is over every rank's rows
+  (``mesh.global_sum``), so each rank's loss is its share of the global
+  one and the ranks' gradients add up to the global gradient;
 * the cross entropy applies its own softmax to raw logits (loss.py:12).
 """
 
@@ -13,13 +16,16 @@ import math
 
 import torch
 
+from .mesh import global_sum
+
 EPSILON = 1e-7
 
 
 def cross_entropy_loss(logits, gt, mask):
     """Soft-target CE.  logits [N,T,A] raw, gt [N,T,A], mask [N,T]."""
     p = torch.softmax(logits, dim=-1)
-    return -(gt * torch.log(p + EPSILON) * mask[..., None]).sum() / mask.sum()
+    return -(gt * torch.log(p + EPSILON) * mask[..., None]).sum() \
+        / global_sum(mask.sum())
 
 
 def duration_smooth_l1_loss(pred, gt, mask):
@@ -28,7 +34,7 @@ def duration_smooth_l1_loss(pred, gt, mask):
     x = pred * mask - gt * mask
     ax = x.abs()
     huber = torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
-    return huber.sum() / mask.sum()
+    return huber.sum() / global_sum(mask.sum())
 
 
 def _log_normal_logpdf(x, mu, sigma2):
@@ -38,26 +44,28 @@ def _log_normal_logpdf(x, mu, sigma2):
 
 def mlp_log_normal_distribution(mu, sigma2, gt, mask):
     """LogNormal NLL of ground-truth durations (loss.py:27-32)."""
-    return -(_log_normal_logpdf(gt, mu, sigma2) * mask).sum() / mask.sum()
+    return -(_log_normal_logpdf(gt, mu, sigma2) * mask).sum() \
+        / global_sum(mask.sum())
 
 
 def mlp_rayleigh_distribution(sigma2, gt, mask):
     """Rayleigh duration NLL (loss.py:21-25; parsed but unused by the
     reference drivers)."""
     logpdf = torch.log(gt / sigma2 + EPSILON) + (-(gt ** 2) / (2 * sigma2))
-    return -(logpdf * mask).sum() / mask.sum()
+    return -(logpdf * mask).sum() / global_sum(mask.sum())
 
 
 def log_action(selected_probs, mask):
     """Per-sample REINFORCE action log-prob over the global mask sum
     (loss.py:34-37).  [N, T] -> [N]."""
-    return (torch.log(selected_probs + EPSILON) * mask).sum(-1) / mask.sum()
+    return (torch.log(selected_probs + EPSILON) * mask).sum(-1) \
+        / global_sum(mask.sum())
 
 
 def log_duration(durations, mu, sigma2, mask):
     """Per-sample REINFORCE duration log-prob (loss.py:39-45).  [N]."""
     return (_log_normal_logpdf(durations, mu, sigma2) * mask).sum(-1) \
-        / mask.sum()
+        / global_sum(mask.sum())
 
 
 # -- saliency measures (imported by the reference drivers; they do not

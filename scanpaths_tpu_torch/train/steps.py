@@ -37,6 +37,17 @@ AiR/train.py:332-340).
 The steps update the :class:`TrainState` in place and return their
 metrics as 0-dim tensors on the model's device (read them when needed:
 reading one waits for the step).
+
+Under data parallel (``train/mesh.py``) each rank steps on its rows of
+the global batch and the step is the global one, as under the JAX
+package's mesh: every loss is a local numerator over a global
+denominator (``losses.py``), the gradients are summed over the ranks
+before the clip (so ``grad_norm`` and the clip are global), BN takes the
+global batch's statistics (``models/resnet.py``), the metrics reduce
+their numerators and denominators, not their ratios, and the SCST noise
+is drawn for the global batch on every rank from a generator seeded
+alike, each rank keeping its rows, so N ranks sample one process's
+rollouts.  With no process group every one of these is the identity.
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ import torch
 from ..core.grid import GridSpec
 from ..metrics import torch_metrics as tm
 from ..ops.sampling import random_sample_from_noise, sample_noise
-from . import losses
+from . import losses, mesh
 from .schedule import make_optimizer
 
 # the batch fields each step reads (the JAX Trainer's _device_batch)
@@ -112,15 +123,17 @@ class TrainState:
         return cls(model, opt, sched, args.clip, step)
 
     def apply_gradients(self) -> torch.Tensor:
-        """Clip the gradients by their global norm (when ``clip`` > 0),
-        step Adam and the schedule, count the step.  A parameter the loss
-        did not reach gets a zero gradient, so it still decays and its
-        moments move, as under optax.  Returns the global norm before the
-        clip."""
+        """Sum the gradients over the ranks, clip them by their global
+        norm (when ``clip`` > 0), step Adam and the schedule, count the
+        step.  A parameter the loss did not reach gets a zero gradient
+        (before the sum, so every rank reduces the same tensors), so it
+        still decays and its moments move, as under optax.  Returns the
+        global norm before the clip."""
         params = list(self.model.parameters())
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        mesh.reduce_gradients(params)
         norm = torch.nn.utils.clip_grad_norm_(
             params, self.clip if self.clip > 0 else math.inf)
         self.optimizer.step()
@@ -163,8 +176,10 @@ def supervised_loss(model, batch: dict, lambda_1: float):
         out["log_normal_mu"], out["log_normal_sigma2"], batch["durations"],
         batch["duration_masks"])
     loss = loss_actions + lambda_1 * loss_duration
-    return loss, _scalars({"loss": loss, "loss_actions": loss_actions,
-                           "loss_duration": loss_duration})
+    # each term is this rank's share of the global one
+    return loss, _scalars({"loss": mesh.global_sum(loss),
+                           "loss_actions": mesh.global_sum(loss_actions),
+                           "loss_duration": mesh.global_sum(loss_duration)})
 
 
 def supervised_step(state: TrainState, batch: dict, lambda_1: float) -> dict:
@@ -265,11 +280,14 @@ def _eval_forward(model, batch: dict) -> dict:
 def _rollouts(cfg: RLConfig, probs, mu, sigma2, generator, noise):
     """``cfg.rl_sample_number`` scanpaths per sample from one stream's
     distributions, every leaf leading with [R]: from ``noise`` (Gumbel
-    [R, N, T, A], normal [R, N, T]) when given, else drawn from
-    ``generator``."""
+    [R, N, T, A], normal [R, N, T], N the global batch) when given, else
+    drawn from ``generator`` for the global batch; this rank's rows of
+    it."""
     if noise is None:
-        noise = sample_noise(probs, mu, generator, cfg.rl_sample_number)
-    return random_sample_from_noise(probs, mu, sigma2, cfg.grid, *noise)
+        noise = sample_noise(probs, mu, generator, cfg.rl_sample_number,
+                             batch=probs.shape[0] * mesh.world_size())
+    return random_sample_from_noise(
+        probs, mu, sigma2, cfg.grid, *(mesh.slice_rows(z, 1) for z in noise))
 
 
 def _reinforce_terms(samples, mu, sigma2):
@@ -287,8 +305,8 @@ def rl_loss(model, batch: dict, cfg: RLConfig,
             generator: torch.Generator | None = None, noise=None):
     """(loss, metrics) of one SCST batch at the current parameters.
     ``noise`` (for tests and replays): one (Gumbel, normal) pair per
-    stream (AiR: good, then poor), each leading with [R]; else the
-    rollouts are drawn from ``generator``."""
+    stream (AiR: good, then poor), each leading with [R], for the global
+    batch; else the rollouts are drawn from ``generator``."""
     out = _eval_forward(model, batch)
     if model.task == "air":
         return _air_rl_loss(out, batch, cfg, generator, noise)
@@ -330,17 +348,18 @@ def rl_loss(model, batch: dict, cfg: RLConfig,
     overflow = tm.expansion_overflow(
         cfg.spec_wd, samples.fix.detach().flatten(0, 1),
         samples.fix_len.flatten(0, 1))
-    metrics = {"rl_loss": loss, "reward_hmean": reward.mean(),
-               "rollout_ok_frac": ok.mean(),
-               "reward_overflow_frac": overflow.float().mean()}
+    metrics = {"rl_loss": mesh.global_sum(loss),
+               "reward_hmean": mesh.global_mean(reward),
+               "rollout_ok_frac": mesh.global_mean(ok),
+               "reward_overflow_frac": mesh.global_mean(overflow.float())}
     if full:
         # the reference's 11 metrics_for_reward/* scalars
         # (OSIE/train.py:269-281): the pairs_eval columns averaged over
         # the valid (rollout, sample) entries
-        denom = ok.sum().clamp_min(1.0)
+        denom = mesh.global_sum(ok.sum()).clamp_min(1.0)
 
         def col_mean(per_rn):
-            return (per_rn * ok).sum() / denom
+            return mesh.global_sum((per_rn * ok).sum()) / denom
 
         mm_mean = grid_mean(grids["mm"].movedim(-1, 0))       # [5, R, N]
         big = 3.4e38
@@ -357,8 +376,8 @@ def rl_loss(model, batch: dict, cfg: RLConfig,
         metrics["metrics_for_reward/SED best"] = col_mean(sed_best)
         metrics["metrics_for_reward/STDE best"] = col_mean(stde_best)
     else:
-        metrics["reward_wod"] = wod_mean.mean()
-        metrics["reward_wd"] = wd_mean.mean()
+        metrics["reward_wod"] = mesh.global_mean(wod_mean)
+        metrics["reward_wd"] = mesh.global_mean(wd_mean)
     return loss, _scalars(metrics)
 
 
@@ -413,9 +432,9 @@ def _air_rl_loss(out, batch, cfg: RLConfig, generator, noise):
         cd_adv = cd - stream_baseline(cd)
         loss = loss + cfg.lambda_5 * ((nla * cd_adv).sum()
                                       + (nld * cd_adv).sum())
-    return loss, _scalars({"rl_loss": loss,
-                           "reward_same_hmean": same_r.mean(),
-                           "reward_diff_hmean": diff_r.mean()})
+    return loss, _scalars({"rl_loss": mesh.global_sum(loss),
+                           "reward_same_hmean": mesh.global_mean(same_r),
+                           "reward_diff_hmean": mesh.global_mean(diff_r)})
 
 
 @torch.no_grad()

@@ -27,6 +27,19 @@ loop over an evaluation split that scores the rollouts on the device
 NW kernel) or with the host suite.  The eval forward is the kernels'
 path (``ScanpathModel.forward``, no gradients); the training steps run
 the stock-op forward (``train/steps.py``).
+
+Data parallel (``cli/train.py`` under torchrun, ``train/mesh.py``):
+every rank builds the same model from the seed, loads its slice of each
+global ``--batch`` and takes the same steps (``train/steps.py`` makes
+them global).  Rank 0 alone writes the run (hparams.json,
+log_train.txt, the scalars, the record, the checkpoints, the
+``_supervised_save`` copy) and runs the human baseline and the
+validations, on the full validation split; its log dir name is
+broadcast, and after each validation so is its generator's state (the
+generator that feeds both the SCST rollouts and the validation
+decodes), so the other ranks' next rollouts stay in lockstep.  The ranks
+meet at a barrier after each checkpoint write; a resume restores rank
+0's files on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from __future__ import annotations
 import datetime
 import functools
 import json
+import logging
 import os
 import shutil
 import sys
@@ -59,7 +73,7 @@ from ..serve.predictor import Predictor, eval_forward, trained_task
 from ..utils.checkpointing import CheckpointManager, restore_checkpoint
 from ..utils.logger import Logger, task_log_level
 from ..utils.recording import RecordManager
-from . import steps
+from . import mesh, steps
 
 # (stream, the answer-correctness flag its rollouts are scored under) of
 # each decode of a batch: AiR decodes its good and poor streams from one
@@ -94,6 +108,40 @@ class ScalarWriter:
         self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
+
+
+class NoScalars:
+    """The writer of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, tag: str, value, step: int):
+        pass
+
+    def close(self):
+        pass
+
+
+def run_logger(m: mesh.Mesh, log_file: str, level=logging.INFO):
+    """Rank 0's file and console logger of ``log_file``; another rank's
+    logger writes nothing."""
+    if m.is_primary:
+        return Logger(log_file, level=level)
+    logger = logging.getLogger(f"{log_file}.rank{m.rank}")
+    logger.handlers.clear()
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
+
+
+def run_log_dir(args, prefix: str) -> str:
+    """The run's directory: ``--resume_dir``, else
+    ``<log_root>/<prefix><date>``, rank 0's name on every rank (the
+    minute can turn between the ranks' clocks)."""
+    if args.resume_dir != "":
+        return args.resume_dir
+    date = str(datetime.datetime.now())
+    date = date[:date.rfind(":")].replace("-", "") \
+        .replace(":", "").replace(" ", "_")
+    return mesh.broadcast_str(join(args.log_root, prefix + date))
 
 
 def data_config(args) -> DataConfig:
@@ -174,11 +222,13 @@ def log_metric_tree(logger, metrics, stds, writer=None, iteration: int = 0,
 
 def check_ported_flags(args) -> None:
     """Raise for each flag whose feature the port does not have, naming
-    the ROADMAP item that ports it."""
+    the ROADMAP item that ports it, and for a ``--mesh_size`` the launch
+    does not give (``mesh.check_mesh_size``)."""
     refused = [
-        (args.mesh_size > 1 or args.model_parallel > 1,
-         "--mesh_size / --model_parallel > 1: multi-GPU training is not "
-         "ported (ROADMAP A13); the port trains on one card"),
+        (args.model_parallel > 1,
+         "--model_parallel > 1: row-parallel tensor parallelism is not "
+         "ported (ROADMAP A13b); data parallel is --mesh_size under "
+         "torchrun"),
         (args.ckpt_backend == "orbax",
          "--ckpt_backend orbax: async checkpoint saves are not ported "
          "(ROADMAP A17)"),
@@ -192,6 +242,7 @@ def check_ported_flags(args) -> None:
     for bad, why in refused:
         if bad:
             raise NotImplementedError(why)
+    mesh.check_mesh_size(args.mesh_size)
 
 
 def load_backbone(backbone: resnet.DilatedResNet50, path: str,
@@ -358,6 +409,12 @@ class Evaluator(EvalCore):
     eval split, AiR/test.py:60-104)."""
 
     def __init__(self, args, log_dir: str, device):
+        if args.mesh_size > 1 or args.model_parallel > 1 or \
+                (mesh.launched_world() or 1) > 1:
+            raise NotImplementedError(
+                "--mesh_size / --model_parallel > 1, or a torchrun launch: "
+                "evaluation over ranks is not ported (ROADMAP A13c); "
+                "cli/test.py evaluates on one card")
         self.args = args
         self.task = args.task
         self.grid = grid_spec(args)
@@ -375,9 +432,93 @@ class Evaluator(EvalCore):
         self.generator = predictor.generator
 
 
-class Trainer(EvalCore):
+def train_loaders(args, task: str, cfg: DataConfig, m: mesh.Mesh):
+    """The supervised and SCST train loaders of ``task`` (this rank's
+    slice of each global batch) and, on rank 0, its validation loader
+    (None elsewhere)."""
+    sup = Loader(SupervisedDataset(task, cfg, split="train"),
+                 batch_size=args.batch, shuffle=True, seed=args.seed,
+                 drop_last=True, process_index=m.rank,
+                 process_count=m.world)
+    rl = Loader(EvaluationDataset(task, cfg, split="train"),
+                batch_size=max(args.batch // 4, 1), shuffle=True,
+                seed=args.seed + 1, drop_last=True, process_index=m.rank,
+                process_count=m.world)
+    val = (Loader(EvaluationDataset(task, cfg, split="validation"),
+                  batch_size=args.batch, shuffle=False)
+           if m.is_primary else None)
+    return sup, rl, val
+
+
+class RunFiles:
+    """The writing side of a run shared by the two trainers:
+    ``log_dir``, ``checkpoints_dir``, hparams.json, ``logger``,
+    ``writer``, ``record_manager`` and, on rank 0, ``checkpoint_manager``
+    (None elsewhere)."""
+
+    def open_run(self, args, prefix: str, level=logging.INFO) -> None:
+        primary = self.mesh.is_primary
+        self.log_dir = run_log_dir(args, prefix)
+        self.checkpoints_dir = join(self.log_dir, "checkpoints")
+        if primary:
+            os.makedirs(self.checkpoints_dir, exist_ok=True)
+            if args.resume_dir == "":
+                with open(join(self.log_dir, "hparams.json"), "w") as f:
+                    json.dump(dict(vars(args)), f, indent=2)
+        self.logger = run_logger(self.mesh,
+                                 join(self.log_dir, "log_train.txt"), level)
+        self.logger.info("The args corresponding to training process are: ")
+        for key, value in vars(args).items():
+            self.logger.info(f"{key:20}: {value}")
+        self.logger.info(self.mesh.describe())
+        self.writer = ScalarWriter(self.log_dir) if primary else NoScalars()
+        self.record_manager = RecordManager(self.log_dir)
+        self.checkpoint_manager = None
+        if args.resume_dir != "":
+            mesh.barrier()   # the resumed run's files are complete
+            self.record_manager.load()
+        elif primary:
+            self.record_manager.init_record()
+        if primary:
+            self.checkpoint_manager = CheckpointManager(
+                self.checkpoints_dir, mode="max",
+                best_metric=self.record_manager.get_best_metric())
+
+    def end_epoch(self, epoch: int, metric: float, iteration: int,
+                  model_state: dict) -> None:
+        """Rank 0 writes the checkpoint triad of an epoch (the model in
+        its reference layout, the Adam state_dict), the record and, at
+        epoch ``start_rl_epoch - 1``, the ``_supervised_save`` copy; then
+        every rank takes rank 0's generator state and meets at a
+        barrier."""
+        args = self.args
+        if self.mesh.is_primary:
+            self.checkpoint_manager.step(metric, model_state,
+                                         self.state.optimizer.state_dict())
+            self.record_manager.save(
+                epoch, iteration, self.checkpoint_manager.get_best_metric())
+            if args.supervised_save and epoch == args.start_rl_epoch - 1:
+                dst = self.log_dir.rstrip("/") + "_supervised_save"
+                if os.path.exists(dst):
+                    shutil.rmtree(dst)
+                shutil.copytree(self.log_dir, dst)
+        mesh.broadcast_generator(self.generator)
+        mesh.barrier()
+
+    def close_run(self):
+        """Closes the writer; every rank returns the record's best
+        metric."""
+        self.writer.close()
+        mesh.barrier()
+        if not self.mesh.is_primary:
+            self.record_manager.load()
+        return self.record_manager.get_best_metric()
+
+
+class Trainer(RunFiles, EvalCore):
     """The training run of ``cli/train.py`` on ``device`` (the card unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU), one rank of a data-parallel run when a
+    process group is initialised (``train/mesh.py``)."""
 
     def __init__(self, args, device="cuda"):
         check_ported_flags(args)
@@ -385,54 +526,17 @@ class Trainer(EvalCore):
         self.task = args.task
         self.grid = grid_spec(args)
         self.device = torch.device(device)
+        self.mesh = mesh.current(self.device)
 
         # ---------------- log dir & artifacts ----------------
-        if args.resume_dir == "":
-            date = str(datetime.datetime.now())
-            date = date[:date.rfind(":")].replace("-", "") \
-                .replace(":", "").replace(" ", "_")
-            self.log_dir = join(args.log_root, "log_" + date)
-        else:
-            self.log_dir = args.resume_dir
-        self.checkpoints_dir = join(self.log_dir, "checkpoints")
-        os.makedirs(self.log_dir, exist_ok=True)
-        os.makedirs(self.checkpoints_dir, exist_ok=True)
-        if args.resume_dir == "":
-            with open(join(self.log_dir, "hparams.json"), "w") as f:
-                json.dump(dict(vars(args)), f, indent=2)
-        self.logger = Logger(join(self.log_dir, "log_train.txt"),
-                             level=task_log_level(args.task))
-        self.logger.info("The args corresponding to training process are: ")
-        for key, value in vars(args).items():
-            self.logger.info(f"{key:20}: {value}")
+        self.open_run(args, "log_", task_log_level(args.task))
         if args.remat not in (False, "none"):
             self.logger.info(f"--remat {args.remat}: not applied (it "
                              "changes memory, not values)")
 
         # ---------------- data ----------------
-        cfg = data_config(args)
-        self.train_loader = Loader(
-            SupervisedDataset(self.task, cfg, split="train"),
-            batch_size=args.batch, shuffle=True, seed=args.seed,
-            drop_last=True)
-        self.train_rl_loader = Loader(
-            EvaluationDataset(self.task, cfg, split="train"),
-            batch_size=max(args.batch // 4, 1), shuffle=True,
-            seed=args.seed + 1, drop_last=True)
-        self.validation_loader = Loader(
-            EvaluationDataset(self.task, cfg, split="validation"),
-            batch_size=args.batch, shuffle=False)
-
-        # ---------------- bookkeeping ----------------
-        self.writer = ScalarWriter(self.log_dir)
-        self.record_manager = RecordManager(self.log_dir)
-        if args.resume_dir == "":
-            self.record_manager.init_record()
-        else:
-            self.record_manager.load()
-        self.checkpoint_manager = CheckpointManager(
-            self.checkpoints_dir, mode="max",
-            best_metric=self.record_manager.get_best_metric())
+        self.train_loader, self.train_rl_loader, self.validation_loader = \
+            train_loaders(args, self.task, data_config(args), self.mesh)
 
         # ---------------- model / optimizer ----------------
         self.model = model_from_flags(args)
@@ -471,9 +575,10 @@ class Trainer(EvalCore):
     # ------------------------------------------------------------------
     def _maybe_profile(self, iteration: int):
         """Opt-in ``torch.profiler`` trace of iterations 3-8 into
-        ``--profile_dir`` (a Chrome trace, ``trace_<iteration>.json``)."""
+        ``--profile_dir`` (a Chrome trace, ``trace_<iteration>.json``), on
+        rank 0."""
         pdir = self.args.profile_dir
-        if not pdir:
+        if not pdir or not self.mesh.is_primary:
             return
         if iteration == 3 and self._profiler is None:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -596,34 +701,26 @@ class Trainer(EvalCore):
         start_epoch = self.record_manager.get_epoch()
         iteration = self.record_manager.get_iteration()
 
-        if args.resume_dir == "":
+        primary = self.mesh.is_primary
+        if args.resume_dir == "" and primary:
             self.human_baseline()
 
         for epoch in range(start_epoch + 1, args.epoch):
             iteration = self.train_epoch(iteration, epoch)
-            cur_metrics = (self.validation_device(iteration)
-                           if args.device_eval
-                           else self.validation(iteration))
-            cur_metric = self.selection_metric(cur_metrics)
-            self.writer.add_scalar("current metric", cur_metric, iteration)
-            self.logger.info(f"{'current metric':10}: {cur_metric:.4f}")
-
-            # the model in the reference layout, the Adam state_dict
-            self.checkpoint_manager.step(
-                cur_metric,
-                to_reference_state_dict(self.model.state_dict(), self.task,
-                                        self.model.map_h, self.model.map_w),
-                self.state.optimizer.state_dict())
-            self.record_manager.save(
-                epoch, iteration, self.checkpoint_manager.get_best_metric())
-
-            if args.supervised_save and epoch == args.start_rl_epoch - 1:
-                dst = self.log_dir.rstrip("/") + "_supervised_save"
-                if os.path.exists(dst):
-                    shutil.rmtree(dst)
-                shutil.copytree(self.log_dir, dst)
-        self.writer.close()
-        return self.checkpoint_manager.get_best_metric()
+            cur_metric, model_state = None, None
+            if primary:
+                cur_metrics = (self.validation_device(iteration)
+                               if args.device_eval
+                               else self.validation(iteration))
+                cur_metric = self.selection_metric(cur_metrics)
+                self.writer.add_scalar("current metric", cur_metric,
+                                       iteration)
+                self.logger.info(f"{'current metric':10}: {cur_metric:.4f}")
+                model_state = to_reference_state_dict(
+                    self.model.state_dict(), self.task, self.model.map_h,
+                    self.model.map_w)
+            self.end_epoch(epoch, cur_metric, iteration, model_state)
+        return self.close_run()
 
 
 def adam_step(opt_state: dict) -> int:

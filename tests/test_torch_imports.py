@@ -29,7 +29,8 @@ def test_port_imports_without_jax():
     mods = _port_modules() + ["chip_smoke"]
     assert {"scanpaths_tpu_torch.ops.nw", "scanpaths_tpu_torch.cli.train",
             "scanpaths_tpu_torch.utils.checkpointing",
-            "scanpaths_tpu_torch.native"} <= set(mods)
+            "scanpaths_tpu_torch.native",
+            "scanpaths_tpu_torch.train.mesh"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['scanpaths_tpu'] = None\n"

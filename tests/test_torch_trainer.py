@@ -518,19 +518,38 @@ def test_backbone_warm_start(synth_root, tmp_path):
         ttrainer.Trainer(tconfig.parse_opt(argv), "cpu")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (("--task", "joint", "--mesh_size", "2"), "A13"),
-    (("--mesh_size", "2"), "A13"),
-    (("--model_parallel", "2"), "A13"),
-    (("--ckpt_backend", "orbax"), "A17"),
-    (("--bf16_moments", "true"), "A18"),
-    (("--stem_impl", "s2d"), "North star"),
+@pytest.mark.parametrize("flags,error,item", [
+    # outside torchrun a data-parallel run names its launch
+    pytest.param(("--task", "joint", "--mesh_size", "2"), ValueError,
+                 "launch it under torchrun", id="flags0-A13"),
+    pytest.param(("--mesh_size", "2"), ValueError,
+                 "launch it under torchrun", id="flags1-A13"),
+    pytest.param(("--model_parallel", "2"), NotImplementedError, "A13b",
+                 id="flags2-A13"),
+    pytest.param(("--ckpt_backend", "orbax"), NotImplementedError, "A17",
+                 id="flags3-A17"),
+    pytest.param(("--bf16_moments", "true"), NotImplementedError, "A18",
+                 id="flags4-A18"),
+    pytest.param(("--stem_impl", "s2d"), NotImplementedError, "North star",
+                 id="flags5-North star"),
 ])
-def test_refused_flags(flags, item, synth_root, tmp_path):
+def test_refused_flags(flags, error, item, synth_root, tmp_path):
     argv = _argv(synth_root, str(tmp_path), ("--epoch", "1", *flags,
                                              "--device", "cpu"))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         tcli_train.main(argv)
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flag", ["--mesh_size", "--model_parallel"])
+def test_test_driver_refuses_ranks(flag, synth_root, tmp_path):
+    """cli/test.py evaluates on one card: a mesh or TP factor above 1
+    raises, naming the ROADMAP item of evaluation over ranks, before it
+    reads or writes anything."""
+    argv = _argv(synth_root, str(tmp_path), (
+        "--evaluation_dir", str(tmp_path), flag, "2", "--device", "cpu"))
+    with pytest.raises(NotImplementedError, match="A13c"):
+        tcli_test.main(argv)
     assert not os.listdir(tmp_path)
 
 
