@@ -73,7 +73,7 @@ Phases, each reporting on its own lines and with its wall time:
    the step times, images/s, the reward grids' share of the SCST step
    and the NW time inside it, NW ms a call at the reward's shapes, and
    the peak memory allocated per phase;
-8. the trainer, for each task: writes a train split of 16 images and a
+8. the trainer, for each task: writes a train split of 8 images and a
    validation split of 16 others (phase 3's frames and subject counts,
    seed 0) and runs scanpaths_tpu_torch.cli.train at full width
    (--batch 16, 5 rollouts, 10 repeats) with --epoch 2 --start_rl_epoch
@@ -142,31 +142,48 @@ Phases, each reporting on its own lines and with its wall time:
    its MB and its load seconds, and the bundle's ms per call against the
    live forward+decode at batch 8 in float32 and bfloat16, each call of
    both also profiled (device busy and idle share);
-11. data parallel, as torchrun launches it (this script re-entered
+11. the mesh over ranks, as torchrun launches it (this script re-entered
    under ``python -m torch.distributed.run --standalone`` as each rank's
-   program): (a) one rank on the card over NCCL and two ranks sharing it
-   over gloo (NCCL refuses two ranks on one device) take the same steps
-   from the same weights, for OSIE and AiR at full width in float32:
-   2 supervised steps at global batch 16 and 2 SCST steps at global
-   batch 4 with 5 rollouts (each rank its rows; the rollout noise drawn
-   for the global batch from one generator seed), from optimizer step 2
-   with Adam's second moments preset (a first Adam step from zero
-   moments is lr times the sign of the gradient, which rounding flips);
-   checks every metric of every step (rtol 1e-5; the gradient norm 1e-1,
-   see DP_GRAD_NORM_RTOL), the parameters and
-   BN running statistics after the first step (rtol 1e-4, atol 1e-6;
-   after the last, reported), no cell or stage
-   launch and 2 NW launches a SCST step and stream on each rank, each
-   held to the plain NW exactly; prints every gap, the step ms of both
-   sides and the gradient all-reduce's ms inside a step (two ranks
-   sharing one card: no scaling number); (b) cli/train.py's main under
-   torchrun on two ranks sharing the card with phase 8's OSIE split and
-   flags and --mesh_size 0: the artifacts written once, by rank 0, the
-   record and every lr scalar equal to phase 8's, the supervised losses
-   against phase 8's single process (the first step's within rtol 1e-5,
-   every step's within 1e-1, see DP_RUN_DRIFT_RTOL), rank 0's validation
-   launches (16 cell and 3 stage a forward), every SCST NW call exact on
-   both ranks; prints the SCST scalars beside phase 8's (not asserted);
+   program, two calls: one rank on the card over NCCL, and two ranks
+   sharing it over gloo, NCCL refusing two ranks on one device): (a) the
+   one rank and the two take the same steps from the same weights, for
+   OSIE and AiR at full width in float32: 2 supervised steps at global
+   batch 16 and 2 SCST steps at global batch 4 with 5 rollouts (each
+   rank its rows; the rollout noise drawn for the global batch from one
+   generator seed), from optimizer step 2 with Adam's second moments
+   preset (a first Adam step from zero moments is lr times the sign of
+   the gradient, which rounding flips); checks every metric of every
+   step (rtol 1e-5; the gradient norm 1e-3 at the first step and 1e-1
+   after it, see DP_GRAD_NORM_RTOL), the parameters and BN running
+   statistics after the first step (rtol 1e-4, atol 1e-6; after the
+   last, reported), no cell or stage launch and 2 NW launches a SCST
+   step and stream on each rank, each held to the plain NW exactly;
+   prints every gap, the step ms of both sides, the gradient
+   all-reduce's ms inside a step (two ranks sharing one card: no scaling
+   number) and OSIE's world-1 supervised step beside phase 7's
+   single-process one; (a') OSIE's steps under
+   torch.use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG=:4096:8),
+   twice from the same state in the world-1 process and once on the two
+   ranks: prints the gaps and the ops without a deterministic
+   implementation; the two ranks' first gradient norm within 1e-3 of
+   world 1's; (d) the same steps on a 1 x 2 mesh (--model_parallel 2,
+   the sliced state of train/tp_step.py) at (a)'s bars, then an eval
+   forward of the seed weights on the first batch with the sliced
+   kernels gathered whole, within F32_TOL of world 1's, 16 cell and 3
+   stage launches on each rank, each call held to its plain version;
+   (c) cli/test.py --device_eval true over the two ranks on phase 8's
+   OSIE and AiR runs against phase 8's single-process cli/test.py on the
+   same runs and seed: at least 99% of rollouts' actions equal, every
+   metric and std within rtol 1e-3, each rank's launches its rows';
+   (b) cli/train.py's main under torchrun on two ranks sharing the card
+   with phase 8's OSIE split and flags and --mesh_size 0: the artifacts
+   written once, by rank 0, the record and every lr scalar equal to phase
+   8's, the supervised losses against phase 8's single process (the
+   first step's within rtol 1e-5, every step's within 1e-1, see
+   DP_RUN_DRIFT_RTOL), each rank's validation launches (both validate
+   their rows: 16 cell and 3 stage a forward), every SCST NW call exact
+   on both ranks; prints the SCST scalars beside phase 8's (not
+   asserted);
 12. prints the kernels' JSON line (phase 11's workers' launches added),
    then {"ok": true, "device": ...} as the last line.
 
@@ -1294,14 +1311,14 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
         captured, sweep_secs = [], [0.0]
 
         def timed(real):
-            def add(self, *a):
+            def add(self, *a, **kw):
                 # the first batch's first two repeats of each stream
                 if len([c for c in captured if c[6:] == list(a[6:])]) < 2:
                     captured.append([x.detach().clone()
                                      if torch.is_tensor(x) else x
                                      for x in a])
                 t = time.perf_counter()
-                real(self, *a)
+                real(self, *a, **kw)
                 sweep_secs[0] += time.perf_counter() - t
             return add
 
@@ -1477,7 +1494,7 @@ def run_train_slice(cell, block, nw, argv):
     more step of each kind is profiled, every NW call of the timed SCST
     steps is held to the plain NW on the same inputs exactly, and timed
     at its shape.  Returns (the launch counts, the NW ms per SCST step,
-    the first supervised batch)."""
+    the first supervised batch, the steady supervised step's ms)."""
     from scanpaths_tpu_torch.data.datasets import (EvaluationDataset, Loader,
                                                    SupervisedDataset)
     from scanpaths_tpu_torch.train import steps, trainer
@@ -1639,7 +1656,7 @@ def run_train_slice(cell, block, nw, argv):
           f"{sum(len(c) for c in nw_calls)} NW calls held to the plain NW "
           f"exactly (max abs err 0, NaN in the same places); NW "
           f"{per_step:.4f} ms a step at these shapes", flush=True)
-    return got, per_step, sup_batch
+    return got, per_step, sup_batch, steady
 
 
 def check_train_parity(argv, batch):
@@ -1681,9 +1698,10 @@ def check_train_parity(argv, batch):
 
 # phase 8's splits: train and validation images per task (the validation
 # split is also OSIE's and AiR's test split; COCO's test driver reads its
-# validation split; 16 train images keep the whole script inside its
-# time with phases 10 and 11), and the steps of each epoch profiled
-TRAINER_IMAGES, VALIDATION_IMAGES = 16, 16
+# validation split; 8 train images, the fewest that give the SCST epoch
+# the two steps its profiled window needs, keep the whole script inside
+# its time with phases 10 and 11), and the steps of each epoch profiled
+TRAINER_IMAGES, VALIDATION_IMAGES = 8, 16
 PROFILE_STEPS = 2
 
 
@@ -1813,9 +1831,9 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck, trace=True):
             window["done"], window["prof"] = window["prof"], None
 
     def timed(real_fn):
-        def add(*a):
+        def add(*a, **kw):
             t = time.perf_counter()
-            real_fn(*a)
+            real_fn(*a, **kw)
             sweep[0] += time.perf_counter() - t
         return add
 
@@ -2007,9 +2025,11 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
     cli/test.py on the run (it must read the run's own
     checkpoint_best.pth), and for OSIE a resumed third epoch (the record's
     iteration, Adam's step count and the lr scalar go on).  ``keep``, a
-    dict, receives the first run's record and scalars (phase 11 holds its
-    data-parallel run to them).  Returns the kernels' launches of the
-    phase."""
+    dict, receives the first run's record and scalars, the test driver's
+    argv on a copy of the run, its metrics, stds, records and wall, and
+    the split's root, which is then left in place (phase 11 holds its
+    runs over ranks to them, and removes it).  Returns the kernels'
+    launches of the phase."""
     import shutil
 
     from scanpaths_tpu_torch.cli import test as test_cli
@@ -2072,12 +2092,20 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
         opened.append(real_path(evaluation_dir))
         return opened[-1]
     test_argv = [a for a in argv] + ["--evaluation_dir", log_dir]
+    seen = []
+    real_eval = tr.EvalCore.evaluate
+
+    def evaluate(self, *a, **kw):
+        seen.append(real_eval(self, *a, **kw))
+        return seen[-1]
     before = _launches(cell, block, nw)
     t0 = time.perf_counter()
     with mock.patch.object(predictor, "checkpoint_path", checkpoint_path), \
+            mock.patch.object(tr.EvalCore, "evaluate", evaluate), \
             contextlib.redirect_stdout(io.StringIO()):
         metrics = test_cli.main(test_argv)
     torch.cuda.synchronize()
+    test_wall = time.perf_counter() - t0
     got = _minus(_launches(cell, block, nw), before)
     for k in total:
         total[k] += got[k]
@@ -2092,13 +2120,23 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
         + 2 * REPEATS * val_forwards * streams})
     out = "validation" if task == "coco" else "test"
     with open(os.path.join(log_dir, f"{out}_predicts.json")) as f:
-        n_records = len(json.load(f))
+        records = json.load(f)
+    n_records = len(records)
     if n_records != VALIDATION_IMAGES * REPEATS * streams:
         raise AssertionError(f"{task} test on the run: {n_records} records")
     print(f"[trainer] {task} cli/test.py --evaluation_dir <the run>: read "
           f"its checkpoint_best.pth, {n_records} records, "
           f"{time.perf_counter() - t0:.2f} s wall, launches {got}",
           flush=True)
+    if keep is not None:
+        # the run as the test driver read it (a resume below may write a
+        # new checkpoint_best.pth)
+        kept = os.path.join(os.path.dirname(log_root), "kept_run")
+        shutil.copytree(log_dir, kept)
+        (_, stds, _), = seen
+        keep.update(root=os.path.dirname(log_root), test=dict(
+            metrics=metrics, stds=stds, records=records, wall=test_wall),
+            test_argv=argv + ["--evaluation_dir", kept])
 
     if task == "osie":
         # resume: a third epoch (SCST) from the record and checkpoint.pth
@@ -2141,7 +2179,7 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
               f"to lr * lr_multiplier of its run's schedule; first resumed "
               f"step at lr {lr[first][0]} (the --epoch 2 schedule gave "
               f"{old_lr})", flush=True)
-    shutil.rmtree(os.path.dirname(log_root))
+    shutil.rmtree(log_root if keep is not None else os.path.dirname(log_root))
     torch.cuda.empty_cache()
     return total
 
@@ -2296,9 +2334,9 @@ def joint_probes(cell, block, nw, jt, steps, device_eval, ck):
         return step
 
     def timed(real_fn):
-        def add(*a):
+        def add(*a, **kw):
             t = time.perf_counter()
-            real_fn(*a)
+            real_fn(*a, **kw)
             sweep[0] += time.perf_counter() - t
         return add
 
@@ -3028,8 +3066,19 @@ DP_METRIC_RTOL = 1e-5
 # and by up to 2.7e-2 at OSIE's last SCST step.  So the gradient norm is
 # held at DP_GRAD_NORM_RTOL, which a gradient summed once too few or too
 # many times (a change by tens of percent) still fails, and the state is
-# held tight after the first step and reported after the last.
+# held tight after the first step and reported after the last.  The first
+# step starts from the same weights on both sides, so its gradient norm
+# parts by the batch split's rounding alone (and the two BN formulas:
+# cuDNN's in one process, the all-reduced two-pass one over ranks).
+# Under torch.use_deterministic_algorithms world 1 repeats its steps bit
+# for bit (every metric and parameter; no op warns), and the two ranks
+# part from it by 6.7e-4 in OSIE's first gradient norm (1.6e-4 later);
+# without it, by 6.7e-4 (OSIE) and 2.5e-4 (AiR) (phase 11(a'), a run of
+# this script on an NVIDIA H100 80GB HBM3 at 700 W).  So the first step
+# is held at DP_FIRST_GRAD_NORM_RTOL, the later ones at
+# DP_GRAD_NORM_RTOL.
 DP_GRAD_NORM_RTOL = 1e-1
+DP_FIRST_GRAD_NORM_RTOL = 1e-3
 DP_STATE_TOL = dict(rtol=1e-4, atol=1e-6)
 # A run's supervised losses against phase 8's single process: the first
 # step sees the same weights and batch at DP_METRIC_RTOL; from the first
@@ -3044,16 +3093,18 @@ DP_RUN_DRIFT_RTOL = 1e-1
 DP_TIMEOUT = 600             # s, a torchrun call
 
 
-def _torchrun(nproc, args, timeout=DP_TIMEOUT):
+def _torchrun(nproc, args, timeout=DP_TIMEOUT, env=None):
     """``python -m torch.distributed.run --standalone --nproc_per_node
-    nproc SCRIPT args``, in a session of its own that is killed whole on
-    the timeout.  Raises with the output's tail unless it exits 0."""
+    nproc SCRIPT args`` (``env`` added to the environment), in a session
+    of its own that is killed whole on the timeout.  Raises with the
+    output's tail unless it exits 0."""
     import signal
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", SCRIPT, *args]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+                            start_new_session=True,
+                            env={**os.environ, **(env or {})})
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -3072,99 +3123,223 @@ def _rank_out(out_dir, rank):
         return json.load(f)
 
 
-def _save_state(state, out_dir, name):
-    torch.save({k: v.detach().cpu() for k, v in
-                state.model.state_dict().items()},
-               os.path.join(out_dir, f"{name}.pt"))
+def _save_state(model, m, out_dir, name):
+    """Rank 0 saves ``model``'s state dict, each sliced kernel gathered
+    whole (every rank takes part in the gather)."""
+    from scanpaths_tpu_torch.train import tp_step
+    sd = tp_step.full_state_dict(model)
+    if m.is_primary:
+        torch.save({k: v.detach().cpu() for k, v in sd.items()},
+                   os.path.join(out_dir, f"{name}.pt"))
+
+
+def checked_forward(cell, block, nw, model, batch, device):
+    """One eval forward of ``model`` on a host batch through the kernels,
+    each kernel call held to its plain version on the same inputs at
+    F32_TOL (scaled); returns (the outputs, the calls' largest errors, the
+    kernels' launches)."""
+    errs = {"cell_step": [], "stage_apply": []}
+    cell_k, stage_k = cell.cell_step, block.stage_apply
+
+    def checked_cell(h, c, *a):
+        c_p = c.clone()
+        h_k, c_k = cell_k(h, c, *a)
+        h_p, c_p = cell.cell_step_plain(h, c_p, *a)
+        errs["cell_step"].append(max(
+            _close("cell in TP forward", h_k, h_p, F32_TOL, scaled=True),
+            _close("cell in TP forward", c_k, c_p, F32_TOL, scaled=True)))
+        return h_k, c_k
+
+    def checked_stage(x, dil, *w):
+        y_k = stage_k(x, dil, *w)
+        errs["stage_apply"].append(_close(
+            "stage in TP forward", y_k, block.stage_apply_plain(x, dil, *w),
+            F32_TOL, scaled=True))
+        return y_k
+
+    from scanpaths_tpu_torch.serve.predictor import eval_forward
+    before = _launches(cell, block, nw)
+    with mock.patch.object(cell, "cell_step", checked_cell), \
+            mock.patch.object(block, "stage_apply", checked_stage):
+        out = eval_forward(model, device, False, batch["images"],
+                           batch.get("attention_maps"), batch.get("tasks"))
+    torch.cuda.synchronize()
+    return ({k: v.cpu() for k, v in out.items()},
+            {k: max(v) for k, v in errs.items()},
+            _minus(_launches(cell, block, nw), before))
 
 
 def dp_steps_worker(out_dir, job_path):
-    """One rank of phase 11(a), under torchrun: for each task, DP_STEPS
-    supervised steps at the global --batch and DP_STEPS SCST steps at
-    --batch / 4 (DP_STEPS global batches each, this rank's rows) from the
-    seed weights of _train_model, from optimizer step DP_START with Adam's
-    second moments preset to DP_NU; the metrics, the step and all-reduce
-    times, the launch counts; every SCST NW call held to the plain NW
-    exactly.  Rank 0 saves each task's state dict after the first step and
-    after the last; each rank writes ``rank<r>.json``."""
+    """One rank of phase 11(a), (a') and (d), under torchrun: the job's
+    runs in turn in one process group (``runs``, each into
+    ``<out_dir>/run<i>``; :func:`_dp_run`), then ``rank<r>.json`` with
+    every run's results.  A run may set ``model_parallel`` (the mesh of
+    its steps) and ``deterministic`` (torch.use_deterministic_algorithms,
+    warn_only, and cuDNN's deterministic algorithms for the run; the
+    messages of the ops without a deterministic implementation are
+    recorded)."""
     import argparse
+    import warnings
+
+    from scanpaths_tpu_torch.train import mesh
+    with open(job_path) as f:
+        job = json.load(f)
+    caught = []
+    real_warn = warnings.showwarning
+
+    def showwarning(message, *a, **kw):
+        if "deterministic" in str(message):
+            caught.append(str(message).split("\n")[0])
+        real_warn(message, *a, **kw)
+    warnings.simplefilter("always")
+    warnings.showwarning = showwarning
+    m = mesh.make_mesh(argparse.Namespace(mesh_size=0), DEVICE)
+    res = dict(rank=m.rank, world=m.world, backend=m.backend,
+               device=str(m.device), note=m.note, runs=[])
+    for i, run in enumerate(job["runs"]):
+        det = run.get("deterministic", False)
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        torch.backends.cudnn.deterministic = det
+        mesh.set_model_parallel(run.get("model_parallel", 1))
+        out = os.path.join(out_dir, f"run{i}")
+        os.makedirs(out, exist_ok=True)
+        caught.clear()
+        res["runs"].append(_dp_run(run, job["argv"], m, out))
+        res["runs"][-1]["warned"] = sorted(set(caught))
+    with open(os.path.join(out_dir, f"rank{m.rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.close_mesh(m)
+
+
+def _dp_run(run, argv, m, out_dir):
+    """One run of dp_steps_worker: for each task of ``run``, DP_STEPS
+    supervised steps at the global --batch and DP_STEPS SCST steps at
+    --batch / 4 (DP_STEPS global batches each, this data rank's rows) from
+    the seed weights of _train_model, from optimizer step DP_START with
+    Adam's second moments preset to DP_NU, on the current mesh (the TP
+    state of train/tp_step.py on a model group of more than one rank);
+    the metrics, the step and all-reduce times, the launch counts; every
+    SCST NW call held to the plain NW exactly.  Rank 0 saves each task's
+    state dict (whole) after the first step and after the last.  With
+    ``repeat`` the steps are taken that many times from the same state
+    (``<task>_<i>`` files); with ``forward``, an eval forward of the seed
+    weights on the first supervised batch (the sliced kernels gathered
+    whole) through the kernels, each call held to its plain version, its
+    outputs saved by rank 0; with ``test``, cli/test.py's main on each
+    argv after the steps (its metrics and stds, rank 0's records, the
+    launches)."""
+    import copy
 
     from scanpaths_tpu_torch.data.datasets import (EvaluationDataset, Loader,
                                                    SupervisedDataset)
     from scanpaths_tpu_torch.ops import block, cell, nw
-    from scanpaths_tpu_torch.train import mesh, steps, trainer
-    with open(job_path) as f:
-        job = json.load(f)
-    m = mesh.make_mesh(argparse.Namespace(mesh_size=0), DEVICE)
-    res = dict(rank=m.rank, world=m.world, backend=m.backend,
-               device=str(m.device), note=m.note, tasks={})
+    from scanpaths_tpu_torch.train import mesh, steps, tp_step, trainer
+    res = dict(model_parallel=mesh.model_size(), tasks={}, tests=[])
     real_reduce = mesh.reduce_gradients
-    for task in DP_TASKS:
-        args = _train_args(job[task])
+
+    def timed_reduce(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(params)
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+    for task in run["tasks"]:
+        args = _train_args(argv[task])
         cfg = trainer.data_config(args)
         sup_loader = Loader(SupervisedDataset(task, cfg, "train"),
                             batch_size=args.batch, shuffle=True,
                             seed=args.seed, drop_last=True,
-                            process_index=m.rank, process_count=m.world)
+                            **trainer.rank_slice())
         rl_loader = Loader(EvaluationDataset(task, cfg, "train"),
                            batch_size=max(args.batch // 4, 1), shuffle=True,
                            seed=args.seed + 1, drop_last=True,
-                           process_index=m.rank, process_count=m.world)
+                           **trainer.rank_slice())
         rl_cfg = trainer.rl_config(args, rl_loader.dataset)
         sup_batches = list(itertools.islice(sup_loader, DP_STEPS))
         rl_batches = list(itertools.islice(rl_loader, DP_STEPS))
-        state = steps.TrainState.create(_train_model(args), args,
-                                        len(sup_loader), len(rl_loader),
-                                        step=DP_START, device=m.device)
-        for st in state.optimizer.state.values():
-            st["exp_avg_sq"].fill_(DP_NU)
-        gen = torch.Generator(device=m.device).manual_seed(args.seed)
-        reduce_ms = []
-
-        def timed_reduce(params):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            real_reduce(params)
-            torch.cuda.synchronize()
-            reduce_ms.append(1e3 * (time.perf_counter() - t0))
-        metrics, step_ms, calls = [], [], []
-        cell.cell_launches = block.block_launches = nw.nw_launches = 0
-        with mock.patch.object(mesh, "reduce_gradients", timed_reduce):
-            for rl, batches in ((False, sup_batches), (True, rl_batches)):
-                for b in batches:
-                    db = steps.device_batch(b, m.device, for_rl=rl)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    if rl:
-                        with _timed_calls(nw, "nw_scores_bins", calls,
-                                          keep_args=True):
-                            out = steps.rl_step(state, db, rl_cfg,
-                                                generator=gen)
-                    else:
-                        out = steps.supervised_step(state, db, args.lambda_1)
-                    metrics.append(_finite(task, f"rank {m.rank} step",
-                                           out))
-                    step_ms.append(1e3 * (time.perf_counter() - t0))
-                    if m.is_primary and len(metrics) == 1:
-                        _save_state(state, out_dir, f"{task}_first")
-        launches = _launches(cell, block, nw)
-        for i, (_, _, a, got) in enumerate(calls):
-            _exact(f"{task} rank {m.rank} SCST NW call {i + 1}", got,
-                   nw.nw_scores_bins_plain(*a))
-        if m.is_primary:
-            _save_state(state, out_dir, task)
+        seed = _train_model(args)
+        reps = []
+        for rep in range(run.get("repeat", 1)):
+            tag = f"{task}_{rep}" if run.get("repeat") else task
+            state = tp_step.train_state_class().create(
+                copy.deepcopy(seed), args, len(sup_loader), len(rl_loader),
+                step=DP_START, device=m.device)
+            for st in state.optimizer.state.values():
+                st["exp_avg_sq"].fill_(DP_NU)
+            gen = torch.Generator(device=m.device).manual_seed(args.seed)
+            reduce_ms = []
+            metrics, step_ms, calls = [], [], []
+            cell.cell_launches = block.block_launches = nw.nw_launches = 0
+            # the all-reduce is timed where there is one: a synchronised
+            # wrapper in a step that has none would only stall it
+            with (mock.patch.object(mesh, "reduce_gradients", timed_reduce)
+                  if mesh.distributed() else contextlib.nullcontext()):
+                for rl, batches in ((False, sup_batches), (True, rl_batches)):
+                    for b in batches:
+                        db = steps.device_batch(b, m.device, for_rl=rl)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        if rl:
+                            with _timed_calls(nw, "nw_scores_bins", calls,
+                                              keep_args=True):
+                                out = steps.rl_step(state, db, rl_cfg,
+                                                    generator=gen)
+                        else:
+                            out = steps.supervised_step(state, db,
+                                                        args.lambda_1)
+                        metrics.append(_finite(task, f"rank {m.rank} step",
+                                               out))
+                        torch.cuda.synchronize()
+                        step_ms.append(1e3 * (time.perf_counter() - t0))
+                        if len(metrics) == 1:
+                            _save_state(state.model, m, out_dir,
+                                        f"{tag}_first")
+            launches = _launches(cell, block, nw)
+            for i, (_, _, a, got) in enumerate(calls):
+                _exact(f"{task} rank {m.rank} SCST NW call {i + 1}", got,
+                       nw.nw_scores_bins_plain(*a))
+            _save_state(state.model, m, out_dir, tag)
+            reps.append(dict(
+                metrics=metrics, step_ms=step_ms, reduce_ms=reduce_ms,
+                launches=launches, nw_checked=len(calls)))
+            del state, calls
+            torch.cuda.empty_cache()
         res["tasks"][task] = dict(
-            metrics=metrics, step_ms=step_ms, reduce_ms=reduce_ms,
-            launches=launches, nw_checked=len(calls),
-            apply_cd=rl_cfg.apply_cd,
+            reps[0], reps=reps, apply_cd=rl_cfg.apply_cd,
             rows=[int(sup_batches[0]["images"].shape[0]),
                   int(rl_batches[0]["images"].shape[0])],
-            params=sum(p.numel() for p in state.model.parameters()))
-        del state, calls
+            params=sum(p.numel() for p in seed.parameters()))
+        if run.get("forward"):
+            tp_step.shard_model(seed)
+            seed.to(m.device).eval()
+            with tp_step.gathered(seed):
+                outs, errs, got = checked_forward(cell, block, nw, seed,
+                                                  sup_batches[0], m.device)
+            res["tasks"][task]["forward"] = dict(errs=errs, launches=got)
+            if m.is_primary:
+                torch.save(outs, os.path.join(out_dir, f"{task}_forward.pt"))
+        del seed
         torch.cuda.empty_cache()
-    with open(os.path.join(out_dir, f"rank{m.rank}.json"), "w") as f:
-        json.dump(res, f)
-    mesh.close_mesh(m)
+    for test_argv in run.get("test", []):
+        from scanpaths_tpu_torch.cli import test as test_cli
+        seen = []
+        real_eval = trainer.EvalCore.evaluate
+
+        def evaluate(self, *a, **kw):
+            seen.append(real_eval(self, *a, **kw))
+            return seen[-1]
+        before = _launches(cell, block, nw)
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer.EvalCore, "evaluate", evaluate), \
+                contextlib.redirect_stdout(io.StringIO()):
+            test_cli.main(test_argv + ["--mesh_size", "0"])
+        torch.cuda.synchronize()
+        (metrics, stds, records), = seen
+        res["tests"].append(dict(
+            task=test_argv[test_argv.index("--task") + 1], metrics=metrics,
+            stds=stds, records=records, wall=time.perf_counter() - t0,
+            launches=_minus(_launches(cell, block, nw), before)))
+    return res
 
 
 def dp_train_worker(out_dir, argv):
@@ -3210,109 +3385,295 @@ def _state_gap(a, b):
     return worst, excess, key
 
 
-def check_dp_steps(tmp, test_argv, smi):
-    """Phase 11(a): the steps of dp_steps_worker on one rank over NCCL and
-    on two ranks sharing the card over gloo, from the same weights and
-    global batches: every metric within DP_METRIC_RTOL, the parameters and
-    BN running statistics after the steps within DP_STATE_TOL, no cell or
-    stage launch, 2 NW launches a SCST step and stream on each rank, each
-    held to the plain NW exactly.  Returns the launches of the workers."""
+def _dp_call(root, label, world, job, env=None):
+    """One torchrun call of dp_steps_worker on ``world`` ranks with
+    ``job``: (its out dir, every rank's result, its wall seconds)."""
+    out = os.path.join(root, label)
+    os.makedirs(out)
+    path = os.path.join(out, "job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    t0 = time.perf_counter()
+    _torchrun(world, ["--dp-steps", out, path], env=env)
+    return (out, [_rank_out(out, r) for r in range(world)],
+            time.perf_counter() - t0)
+
+
+def _metric_gaps(got, want):
+    """{metric: largest relative gap} of two step-metric lists, and the
+    first step's gradient-norm gap apart (``grad_norm_first``)."""
+    rel = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        if set(g) != set(w):
+            raise AssertionError(f"step {i}: metric keys")
+        for k in w:
+            key = "grad_norm_first" if (k, i) == ("grad_norm", 0) else k
+            rel[key] = max(rel.get(key, 0.0), abs(g[k] - w[k])
+                           / max(abs(w[k]), 1e-30))
+    return rel
+
+
+def _dp_bound(key):
+    return {"grad_norm_first": DP_FIRST_GRAD_NORM_RTOL,
+            "grad_norm": DP_GRAD_NORM_RTOL}.get(key, DP_METRIC_RTOL)
+
+
+def check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8):
+    """Phase 11(a), (a'), (c) and (d).  (a): the steps of dp_steps_worker
+    on one rank over NCCL and on two ranks sharing the card over gloo,
+    from the same weights and global batches; (d): the same steps on a
+    1 x 2 mesh (``--model_parallel 2``, the TP state), then one eval
+    forward of the seed weights on the first batch through the kernels
+    (the sliced kernels gathered whole) against world 1's.  Every metric
+    within DP_METRIC_RTOL (the gradient norm: the first step's within
+    DP_FIRST_GRAD_NORM_RTOL, the later ones' within DP_GRAD_NORM_RTOL),
+    the parameters and BN running statistics after the first step within
+    DP_STATE_TOL, no cell or stage launch in a step, 2 NW launches a SCST
+    step and stream on each rank, each held to the plain NW exactly; each
+    forward 16 cell and 3 stage launches on each rank, each held to its
+    plain version, its outputs within F32_TOL of world 1's.  (a'): OSIE's
+    steps under torch.use_deterministic_algorithms, twice in one world-1
+    process and once on two ranks: the gaps printed, and the ops that warn
+    named.  (c): cli/test.py --device_eval true on two ranks on phase 8's
+    OSIE and AiR runs against phase 8's single-process cli/test.py on the
+    same runs and seed: at least 99% of rollouts' actions equal, every
+    metric and std within rtol 1e-3, each rank's launches its rows'.
+    Returns the launches of the workers."""
     root = os.path.join(tmp, "dp_steps")
     os.makedirs(root)
-    job = os.path.join(root, "job.json")
-    with open(job, "w") as f:
-        json.dump({t: test_argv[t] for t in DP_TASKS}, f)
+    argv = {t: test_argv[t] for t in DP_TASKS}
     total = dict.fromkeys(("cell_step", "stage_apply", "nw_scores_bins"), 0)
-    runs = {}
-    for world in (1, 2):
-        out = os.path.join(root, f"world{world}")
-        os.makedirs(out)
-        t0 = time.perf_counter()
-        _torchrun(world, ["--dp-steps", out, job])
-        runs[world] = (out, [_rank_out(out, r) for r in range(world)],
-                       time.perf_counter() - t0)
-    (out1, (w1,), s1), (out2, w2, s2) = runs[1], runs[2]
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+    tests = [phase8[t]["test_argv"] for t in DP_TASKS]
+    # two calls, so each process's start and warm-up is paid once: world
+    # 1 (the steps and forwards, then OSIE's steps twice under the
+    # deterministic algorithms), and two ranks sharing the card (the
+    # data-parallel steps, deterministic, then the TP steps, forwards and
+    # cli/test.py over the ranks); cuBLAS's deterministic workspace is
+    # set for both
+    det = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    out1, w1c, s1 = _dp_call(root, "world1", 1, dict(argv=argv, runs=[
+        dict(tasks=DP_TASKS, forward=True),
+        dict(tasks=["osie"], deterministic=True, repeat=2)]), env=det)
+    out2, w2c, s2 = _dp_call(root, "world2", 2, dict(argv=argv, runs=[
+        dict(tasks=DP_TASKS, deterministic=True),
+        dict(tasks=DP_TASKS, model_parallel=2, forward=True, test=tests)]),
+        env=det)
+
+    def runs(ranks, i):
+        return [dict(r["runs"][i], **{k: r[k] for k in (
+            "rank", "world", "backend", "device", "note")}) for r in ranks]
+    (w1,), (d1,), w2, wt = (runs(w1c, 0), runs(w1c, 1), runs(w2c, 0),
+                            runs(w2c, 1))
+    out1, outd1, out2, outt = (os.path.join(out1, "run0"),
+                               os.path.join(out1, "run1"),
+                               os.path.join(out2, "run0"),
+                               os.path.join(out2, "run1"))
     # one rank on its card talks NCCL, two sharing it gloo (on the CPU,
-    # where a rehearsal runs, both gloo)
+    # where a rehearsal runs, all gloo)
     if w1["backend"] != ("nccl" if DEVICE == "cuda" else "gloo") or \
-            any(r["backend"] != "gloo" for r in w2):
+            any(r["backend"] != "gloo" for r in w2 + wt):
         raise AssertionError(f"backends {w1['backend']}, "
-                             f"{[r['backend'] for r in w2]}")
-    print(f"[dp] world 1: {w1['device']} over {w1['backend']}; world 2: "
-          f"{w2[0]['device']}, {w2[1]['device']} over {w2[0]['backend']}"
+                             f"{[r['backend'] for r in w2 + wt]}")
+    print(f"[dp] world 1: {w1['device']} over {w1['backend']}; world 2 and "
+          f"the 1 x 2 TP mesh: {w2[0]['device']}, {w2[1]['device']} over "
+          f"{w2[0]['backend']}"
           + (f" ({w2[0]['note']})" if w2[0]["note"] else "")
-          + f"; torchrun calls {s1:.1f} s and {s2:.1f} s wall", flush=True)
+          + f"; torchrun calls {s1:.1f} s (world 1: the steps, forwards "
+          f"and the deterministic repeats) and {s2:.1f} s (two ranks: the "
+          "deterministic data-parallel steps, the TP steps, forwards and "
+          "two cli/test runs) wall", flush=True)
     for task in DP_TASKS:
         want = w1["tasks"][task]
         streams = 2 if task == "air" else 1
         nw_want = DP_STEPS * (2 * streams + 2 * want["apply_cd"])
-        for r in [w1] + w2:
+        for r in [w1] + w2 + wt:
             got = r["tasks"][task]
-            for k in total:
-                total[k] += got["launches"][k]
-            _expect(f"{task} data-parallel steps, world {r['world']} rank "
-                    f"{r['rank']}", got["launches"], {
-                        "cell_step": 0, "stage_apply": 0,
-                        "nw_scores_bins": nw_want})
+            add(got["launches"])
+            _expect(f"{task} steps, world {r['world']} (model parallel "
+                    f"{r['model_parallel']}) rank {r['rank']}",
+                    got["launches"], {"cell_step": 0, "stage_apply": 0,
+                                      "nw_scores_bins": nw_want})
             if got["nw_checked"] != nw_want:
                 raise AssertionError(f"{task}: {got['nw_checked']} NW calls "
                                      "checked")
-        rel = {}
-        for r in w2:
-            for i, (g, w) in enumerate(zip(r["tasks"][task]["metrics"],
-                                           want["metrics"])):
-                if set(g) != set(w):
-                    raise AssertionError(f"{task} step {i}: metric keys")
-                for k in w:
-                    rel[k] = max(rel.get(k, 0.0), abs(g[k] - w[k])
-                                 / max(abs(w[k]), 1e-30))
-        bound = {k: DP_GRAD_NORM_RTOL if k == "grad_norm" else DP_METRIC_RTOL
-                 for k in rel}
-        worst = max(rel, key=lambda k: rel[k] / bound[k])
-        gaps = {}
-        for name in (f"{task}_first", task):
-            gaps[name] = _state_gap(
-                torch.load(os.path.join(out2, f"{name}.pt")),
+        for label, ranks, out in (("world 2 (deterministic)", w2, out2),
+                                  ("TP 1 x 2", wt, outt)):
+            rel = {}
+            for r in ranks:
+                for k, v in _metric_gaps(r["tasks"][task]["metrics"],
+                                         want["metrics"]).items():
+                    rel[k] = max(rel.get(k, 0.0), v)
+            worst = max(rel, key=lambda k: rel[k] / _dp_bound(k))
+            gaps = {name: _state_gap(
+                torch.load(os.path.join(out, f"{name}.pt")),
                 torch.load(os.path.join(out1, f"{name}.pt")))
-        gap, excess, key = gaps[f"{task}_first"]
-        w2t = [r["tasks"][task] for r in w2]
-        print(f"[dp] {task} {DP_STEPS} supervised steps at batch "
-              f"{want['rows'][0]} and {DP_STEPS} SCST steps at batch "
-              f"{want['rows'][1]} (x "
-              f"{_train_args(test_argv[task]).rl_sample_number} rollouts), "
-              f"{want['params'] / 1e6:.1f} M parameters: metrics "
-              f"of world 2 (each rank) against world 1, largest relative gap "
-              f"{rel[worst]:.3g} ({worst}; rtol {bound[worst]}): "
-              + ", ".join(f"{k} {v:.2g}" for k, v in sorted(rel.items()))
-              + "; grad_norm by step, world 1 / world 2: "
-              + ", ".join(f"{w['grad_norm']:.6g}/{g['grad_norm']:.6g}"
-                          for w, g in zip(want["metrics"],
-                                          w2[0]["tasks"][task]["metrics"]))
-              + f"; parameters and BN running statistics after the first "
-              f"step: largest abs gap {gap:.3g}, largest excess over rtol "
-              f"{DP_STATE_TOL['rtol']} {excess:.3g} ({key}; atol "
-              f"{DP_STATE_TOL['atol']}); after the last: largest abs gap "
-              f"{gaps[task][0]:.3g}, largest excess {gaps[task][1]:.3g} "
-              f"({gaps[task][2]}; reported)", flush=True)
+                for name in (f"{task}_first", task)}
+            gap, excess, key = gaps[f"{task}_first"]
+            print(f"[dp] {task} {label} against world 1: {DP_STEPS} "
+                  f"supervised steps at batch {want['rows'][0]} and "
+                  f"{DP_STEPS} SCST steps at batch {want['rows'][1]} (x "
+                  f"{_train_args(argv[task]).rl_sample_number} rollouts), "
+                  f"{want['params'] / 1e6:.1f} M parameters: largest "
+                  f"relative gap {rel[worst]:.3g} ({worst}; rtol "
+                  f"{_dp_bound(worst)}): "
+                  + ", ".join(f"{k} {v:.2g}" for k, v in sorted(rel.items()))
+                  + "; grad_norm by step, world 1 / " + label + ": "
+                  + ", ".join(f"{w['grad_norm']:.6g}/{g['grad_norm']:.6g}"
+                              for w, g in zip(want["metrics"],
+                                              ranks[0]["tasks"][task][
+                                                  "metrics"]))
+                  + f"; parameters and BN running statistics after the "
+                  f"first step: largest abs gap {gap:.3g}, largest excess "
+                  f"over rtol {DP_STATE_TOL['rtol']} {excess:.3g} ({key}; "
+                  f"atol {DP_STATE_TOL['atol']}); after the last: largest "
+                  f"abs gap {gaps[task][0]:.3g}, largest excess "
+                  f"{gaps[task][1]:.3g} ({gaps[task][2]}; reported)",
+                  flush=True)
+            if rel[worst] > _dp_bound(worst):
+                raise AssertionError(f"{task} {label}: metric {worst} off "
+                                     f"by {rel[worst]:.3g}")
+            if excess > DP_STATE_TOL["atol"]:
+                raise AssertionError(f"{task} {label}: state {key} off by "
+                                     f"{excess:.3g} past rtol")
+        w2t, wtt = ([r["tasks"][task] for r in ranks] for ranks in (w2, wt))
         print(f"[dp] {task} step ms, {smi}: world 1 (one rank, "
-              f"{w1['backend']}) "
-              + ", ".join(f"{v:.1f}" for v in want["step_ms"])
-              + "; world 2 (two ranks sharing one card over gloo; no scaling "
-              "number) rank 0 "
+              f"{w1['backend']}) " + ", ".join(f"{v:.1f}" for v in
+                                               want["step_ms"])
+              + "; two ranks sharing one card over gloo (not a scaling "
+              "number): world 2 (deterministic algorithms) rank 0 "
               + ", ".join(f"{v:.1f}" for v in w2t[0]["step_ms"])
               + ", rank 1 " + ", ".join(f"{v:.1f}" for v in w2t[1]["step_ms"])
+              + "; TP 1 x 2 rank 0 "
+              + ", ".join(f"{v:.1f}" for v in wtt[0]["step_ms"])
+              + ", rank 1 " + ", ".join(f"{v:.1f}" for v in wtt[1]["step_ms"])
               + " (supervised steps, then SCST); the gradient all-reduce "
-              f"inside a step ({want['params'] * 4 / 1e6:.1f} MB f32): world "
-              "1 " + ", ".join(f"{v:.2f}" for v in want["reduce_ms"])
-              + " ms, world 2 rank 0 "
-              + ", ".join(f"{v:.2f}" for v in w2t[0]["reduce_ms"]) + " ms",
+              f"inside a world-2 step ({want['params'] * 4 / 1e6:.1f} MB "
+              "f32), rank 0: "
+              + ", ".join(f"{v:.2f}" for v in w2t[0]["reduce_ms"]) + " ms"
+              + (f" (world 1 calls none: {want['reduce_ms']})"
+                 if want["reduce_ms"] else " (world 1 calls none)"),
               flush=True)
-        if rel[worst] > bound[worst]:
-            raise AssertionError(f"{task}: world 2 metric {worst} off by "
-                                 f"{rel[worst]:.3g}")
-        if excess > DP_STATE_TOL["atol"]:
-            raise AssertionError(f"{task}: world 2 state {key} off by "
-                                 f"{excess:.3g} past rtol")
+        if task == "osie":
+            print(f"[dp] osie supervised step at batch {want['rows'][0]}, "
+                  f"{smi}: world 1 under torchrun (NCCL group, the "
+                  f"single-card path) step 2 {want['step_ms'][1]:.1f} ms "
+                  f"against phase 7's single process, steps 2-"
+                  f"{TRAIN_STEPS} {phase7_ms:.1f} ms "
+                  f"({100 * (want['step_ms'][1] / phase7_ms - 1):+.1f}%)",
+                  flush=True)
+        # the TP eval forward against world 1's
+        ref = torch.load(os.path.join(out1, f"{task}_forward.pt"))
+        got = torch.load(os.path.join(outt, f"{task}_forward.pt"))
+        errs = {k: _close(f"{task} TP eval forward {k}", got[k], ref[k],
+                          F32_TOL, scaled=True) for k in ref}
+        for r in [w1] + wt:
+            fw = r["tasks"][task]["forward"]
+            add(fw["launches"])
+            _expect(f"{task} eval forward, model parallel "
+                    f"{r['model_parallel']} rank {r['rank']}",
+                    fw["launches"], {"cell_step": SEQ, "stage_apply": 3,
+                                     "nw_scores_bins": 0})
+        print(f"[dp] {task} TP eval forward (1 x 2 mesh, the sliced "
+              f"kernels gathered whole) of the first batch against world "
+              f"1's: max abs err " + ", ".join(f"{k} {v:.3g}"
+                                               for k, v in errs.items())
+              + f" (F32_TOL {F32_TOL}, scaled); each rank "
+              f"{SEQ} cell and 3 stage launches, each call held to its "
+              "plain version, largest err rank 0 "
+              + ", ".join(f"{k} {v:.3g}" for k, v in
+                          wt[0]["tasks"][task]["forward"]["errs"].items())
+              + ", rank 1 "
+              + ", ".join(f"{k} {v:.3g}" for k, v in
+                          wt[1]["tasks"][task]["forward"]["errs"].items()),
+              flush=True)
+    # (a'): determinism
+    det_runs = d1["tasks"]["osie"]["reps"]
+    rep = _metric_gaps(det_runs[1]["metrics"], det_runs[0]["metrics"])
+    rep_state = {n: _state_gap(
+        torch.load(os.path.join(outd1, f"osie_1{n}.pt")),
+        torch.load(os.path.join(outd1, f"osie_0{n}.pt")))[0]
+        for n in ("_first", "")}
+    split = {}
+    for r in w2:
+        for k, v in _metric_gaps(r["tasks"]["osie"]["metrics"],
+                                 det_runs[0]["metrics"]).items():
+            split[k] = max(split.get(k, 0.0), v)
+    split_state = {n: _state_gap(
+        torch.load(os.path.join(out2, f"osie{n}.pt")),
+        torch.load(os.path.join(outd1, f"osie_0{n}.pt")))[0]
+        for n in ("_first", "")}
+    for run in det_runs:
+        add(run["launches"])
+    warned = sorted(set(d1["warned"]) | {w for r in w2 for w in r["warned"]})
+    print(f"[dp] osie steps under torch.use_deterministic_algorithms "
+          f"(warn_only; CUBLAS_WORKSPACE_CONFIG=:4096:8; cudnn "
+          f"deterministic), {smi}: world 1 twice from the same state in one "
+          f"process: largest relative metric gap "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(rep.items()))
+          + f"; state largest abs gap after the first step "
+          f"{rep_state['_first']:.3g}, after the last {rep_state['']:.3g}"
+          + f"; world 2 against it (the batch split alone, if world 1 "
+          f"repeats): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(split.items()))
+          + f"; state after the first step {split_state['_first']:.3g}, "
+          f"after the last {split_state['']:.3g}; ops without a "
+          f"deterministic implementation: {warned or 'none'}", flush=True)
+    # (c): cli/test.py over two ranks against phase 8's single process
+    for i, task in enumerate(DP_TASKS):
+        ref = phase8[task]["test"]
+        streams = 2 if task == "air" else 1
+        forwards = -(-VALIDATION_IMAGES // TEST_BATCH)
+        for r in wt:
+            t = r["tests"][i]
+            add(t["launches"])
+            _expect(f"{task} cli/test.py over two ranks, rank {r['rank']}",
+                    t["launches"], {
+                        "cell_step": SEQ * forwards,
+                        "stage_apply": 3 * forwards,
+                        "nw_scores_bins": (2 + 2 * REPEATS * streams)
+                        * forwards})
+        t0, t1 = (r["tests"][i] for r in wt)
+        if t1["records"] or len(t0["records"]) != len(ref["records"]):
+            raise AssertionError(f"{task} records: rank 0 "
+                                 f"{len(t0['records'])}, rank 1 "
+                                 f"{len(t1['records'])}, one process "
+                                 f"{len(ref['records'])}")
+        same = sum(a["X"] == b["X"] and a["Y"] == b["Y"]
+                   for a, b in zip(t0["records"], ref["records"]))
+        share = same / len(ref["records"])
+        rel = {}
+
+        def walk(g, w, path):
+            for k in w:
+                if isinstance(w[k], dict):
+                    walk(g[k], w[k], path + [k])
+                else:
+                    rel["-".join(path + [k])] = abs(g[k] - w[k]) / max(
+                        abs(w[k]), 1e-30)
+        for tree in ("metrics", "stds"):
+            for r in wt:
+                walk(r["tests"][i][tree], ref[tree], [tree])
+        worst = max(rel, key=rel.get)
+        print(f"[dp] {task} cli/test.py --device_eval true over two ranks "
+              f"sharing one card (gloo) on phase 8's run, against the "
+              f"single process on the same run and seed: {same} of "
+              f"{len(ref['records'])} rollouts' actions equal ({share:.2%}),"
+              f" largest relative gap of the metrics and stds {rel[worst]:.3g}"
+              f" ({worst}); wall {t0['wall']:.1f} s (one process "
+              f"{ref['wall']:.1f} s); launches rank 0 {t0['launches']}, "
+              f"rank 1 {t1['launches']}", flush=True)
+        if share < 0.99 or rel[worst] > 1e-3:
+            raise AssertionError(f"{task} cli/test.py over two ranks: "
+                                 f"{share:.2%} actions equal, {worst} off "
+                                 f"by {rel[worst]:.3g}")
+        shutil.rmtree(phase8[task]["root"])
+    bad = {k: v for k, v in split.items() if v > _dp_bound(k)}
+    if bad:
+        raise AssertionError(f"deterministic world 2 against world 1: {bad}")
     shutil.rmtree(root)
     return total
 
@@ -3323,11 +3684,11 @@ def check_dp_run(tmp, phase8):
     seed 0) and --mesh_size 0.  Checks the artifacts (written once, by
     rank 0), the record's iteration and every lr scalar against phase 8's
     single-process run exactly, its supervised losses (the first step
-    within DP_METRIC_RTOL, every step within DP_RUN_DRIFT_RTOL),
-    rank 0's launches (16 cell and 3 stage a validation forward, NW as
-    phase 8), rank 1's (NW alone, in its SCST steps), every SCST NW call
-    exact on both ranks; prints the SCST scalars beside phase 8's.
-    Returns the workers' launches."""
+    within DP_METRIC_RTOL, every step within DP_RUN_DRIFT_RTOL), each
+    rank's launches (both validate their rows: 16 cell and 3 stage a
+    validation forward, NW for the rows each counts, as phase 8's per
+    batch), every SCST NW call exact on both ranks; prints the SCST
+    scalars beside phase 8's.  Returns the workers' launches."""
     argv = write_trainer_split(tmp, "osie")
     args = _train_args(argv)
     log_root = argv[argv.index("--log_root") + 1]
@@ -3340,17 +3701,14 @@ def check_dp_run(tmp, phase8):
     sup_steps = TRAINER_IMAGES * TEST_SUBJECTS["osie"] // args.batch
     rl_steps = TRAINER_IMAGES // max(args.batch // 4, 1)
     val_forwards = -(-VALIDATION_IMAGES // args.batch)
-    check_trainer_launches("osie", "data parallel rank 0",
-                           ranks[0]["records"], 1, args.eval_repeat_num,
-                           val_forwards, rl_steps,
-                           args.apply_consistency_divergence)
+    for r in ranks:
+        check_trainer_launches("osie", f"data parallel rank {r['rank']}",
+                               r["records"], 1, args.eval_repeat_num,
+                               val_forwards, rl_steps,
+                               args.apply_consistency_divergence)
     kinds = [r["kind"] for r in ranks[1]["records"]]
-    if kinds != ["epoch", "epoch"]:
+    if kinds != ["human", "epoch", "validation", "epoch", "validation"]:
         raise AssertionError(f"rank 1 ran {kinds}")
-    check_trainer_launches("osie", "data parallel rank 1",
-                           ranks[1]["records"], 1, args.eval_repeat_num,
-                           val_forwards, rl_steps,
-                           args.apply_consistency_divergence)
     for r in ranks:
         if r["nw_checked"] != 2 * rl_steps:
             raise AssertionError(f"rank {r['rank']}: {r['nw_checked']} SCST "
@@ -3429,14 +3787,14 @@ def check_dp_run(tmp, phase8):
     return total
 
 
-def run_dp_slice(tmp, test_argv, phase8, smi):
+def run_dp_slice(tmp, test_argv, phase7_ms, phase8, smi):
     """Phase 11: check_dp_steps, then check_dp_run.  Returns the kernels'
     launches of the phase's workers."""
     t0 = time.perf_counter()
-    total = check_dp_steps(tmp, test_argv, smi)
-    print(f"[dp] step equivalence: {time.perf_counter() - t0:.1f} s wall",
-          flush=True)
-    for k, v in check_dp_run(tmp, phase8).items():
+    total = check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8)
+    print(f"[dp] steps, forwards, determinism and cli/test.py over ranks: "
+          f"{time.perf_counter() - t0:.1f} s wall", flush=True)
+    for k, v in check_dp_run(tmp, phase8["osie"]).items():
         total[k] += v
     return total
 
@@ -3537,22 +3895,24 @@ def main():
             _phase(f"test slice {task}", t0)
 
         check_grad_refusal(cell, block)
+        phase7_ms = {}
         for task in TASKS:
             t0 = time.perf_counter()
-            counts, per_step, sup_batch = run_train_slice(cell, block, nw,
-                                                          test_argv[task])
+            counts, per_step, sup_batch, sup_ms = run_train_slice(
+                cell, block, nw, test_argv[task])
+            phase7_ms[task] = sup_ms
             add(counts)
             summary["nw_scores_bins"][f"{task}_ms_per_rl_step"] = per_step
             if task == "osie":
                 check_train_parity(test_argv[task], sup_batch)
             _phase(f"training {task}", t0)
 
-        phase8 = {}
+        phase8 = {task: {} for task in DP_TASKS}
         for task in TASKS:
             t0 = time.perf_counter()
             add(run_trainer_slice(cell, block, nw,
                                   write_trainer_split(tmp, task),
-                                  keep=phase8 if task == "osie" else None))
+                                  keep=phase8.get(task)))
             _phase(f"trainer {task}", t0)
 
         t0 = time.perf_counter()
@@ -3566,7 +3926,7 @@ def main():
         _phase("export", t0)
 
         t0 = time.perf_counter()
-        add(run_dp_slice(tmp, test_argv, phase8, smi))
+        add(run_dp_slice(tmp, test_argv, phase7_ms["osie"], phase8, smi))
         _phase("data parallel", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",

@@ -6,6 +6,8 @@ stream for AiR), write the prediction JSON, print the metric tree.
         --evaluation_dir RUN --img_dir DIR --fix_dir DIR \\
         [--att_dir DIR (air) | --detector_dir DIR (coco)] \\
         [--device_eval true] [--half_precision true] [--device cuda]
+    torchrun --nproc_per_node N -m scanpaths_tpu_torch.cli.test \\
+        [the same options] --mesh_size 0 [--model_parallel T]
 
 ``RUN/checkpoints/checkpoint_best.pth`` is a reference-layout torch
 checkpoint; of a joint run (``--task joint`` in ``RUN/hparams.json``) the
@@ -19,9 +21,16 @@ AiR runs one eval forward per batch and decodes both of its streams
 metric is computed on the device (``metrics/device_eval.py``); otherwise
 the host suite (``metrics/evaluation.py``) scores the predictions,
 bucketed by answer correctness for AiR.  The loop is the trainer's
-validation loop (``train/trainer.py::EvalCore.evaluate``).  ``--device`` (default ``cuda``)
-is this CLI's own flag; with no card it raises unless ``--device cpu``
-is given.  Every other flag is ``core/config.py::parse_opt``'s.
+validation loop (``train/trainer.py::EvalCore.evaluate``).  Under
+torchrun the evaluation runs over the ranks, one process each
+(``train/mesh.py``): each data rank decodes and scores its slice of every
+global ``--batch`` (the ranks of a ``--model_parallel`` group the same
+rows), rank 0 gathers the rows and the prediction records in one
+process's order, and writes the JSON and the log; ``--mesh_size N > 1``
+outside torchrun raises with the torchrun command line.  ``--device``
+(default ``cuda``) is this CLI's own flag; with no card it raises unless
+``--device cpu`` is given.  Every other flag is
+``core/config.py::parse_opt``'s.
 """
 
 from __future__ import annotations
@@ -35,7 +44,9 @@ import torch
 
 from ..core.config import parse_opt
 from ..data.datasets import EvaluationDataset, Loader
-from ..train.trainer import Evaluator, data_config, log_metric_tree
+from ..train import mesh
+from ..train.trainer import (Evaluator, data_config, log_metric_tree,
+                             rank_slice)
 
 
 def dump_record(img_name, fix_vector, trial, extra=None):
@@ -72,36 +83,39 @@ def main(argv=None):
     if not log_dir:
         raise ValueError("--evaluation_dir (the training log dir) is "
                          "required")
-    evaluator = Evaluator(args, log_dir, device)
+    m = mesh.make_mesh(args, device, cli="test")
+    evaluator = Evaluator(args, log_dir, m.device)
     split = "validation" if args.task == "coco" else "test"
     loader = Loader(EvaluationDataset(args.task, data_config(args),
                                       split=split),
-                    batch_size=args.batch)
+                    batch_size=args.batch, **rank_slice())
 
     human_metrics, human_std = evaluator.human_metrics(loader,
                                                        args.device_eval)
     evaluator.logger.info("The metrics for human performance are: ")
     log_metric_tree(evaluator.logger, human_metrics, human_std)
 
-    predict_results = []
-
     def record(batch, flag, r, preds):
+        out = []
         for i, pred in enumerate(preds):
             extra = None
             if args.task == "air":
                 extra = {"qid": batch["question_ids"][i], "performance": flag}
             elif args.task == "coco":
                 extra = {"task": batch["task_names"][i]}
-            predict_results.append(dump_record(batch["img_names"][i], pred,
-                                               r, extra))
-    cur_metrics, cur_std = evaluator.evaluate(loader, args.device_eval,
-                                              record=record)
+            out.append(dump_record(batch["img_names"][i], pred, r, extra))
+        return out
+    cur_metrics, cur_std, predict_results = evaluator.evaluate(
+        loader, args.device_eval, record=record)
 
-    with open(join(log_dir, f"{split}_predicts.json"), "w") as f:
-        json.dump(predict_results, f, indent=2)
+    if m.is_primary:
+        with open(join(log_dir, f"{split}_predicts.json"), "w") as f:
+            json.dump(predict_results, f, indent=2)
 
     evaluator.logger.info("The metrics for best model performance are: ")
     log_metric_tree(evaluator.logger, cur_metrics, cur_std)
+    mesh.barrier()          # rank 0's files are complete
+    mesh.close_mesh(m)
     return cur_metrics
 
 

@@ -534,6 +534,13 @@ class Loader:
         return -(-n // self.batch_size)
 
     def __iter__(self):
+        for batch, _ in self.sliced_batches():
+            yield batch
+
+    def sliced_batches(self):
+        """The batches of one pass, each with whether it is this process's
+        slice of a full global batch (False: the whole batch, as every
+        process loads the trailing partial one)."""
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
@@ -543,8 +550,18 @@ class Loader:
             batch_idx = idx[start:start + self.batch_size]
             if self.drop_last and len(batch_idx) < self.batch_size:
                 break
-            if self.process_count > 1 and len(batch_idx) == self.batch_size:
+            sliced = (self.process_count > 1
+                      and len(batch_idx) == self.batch_size)
+            if sliced:
                 per = self.batch_size // self.process_count
                 lo = self.process_index * per
                 batch_idx = batch_idx[lo:lo + per]
-            yield self.dataset.get_batch(batch_idx)
+            yield self.dataset.get_batch(batch_idx), sliced
+
+
+def batches_of(loader):
+    """(batch, sliced) pairs of a :class:`Loader` (``sliced_batches``) or
+    of any other iterable of batches, each then whole on every process."""
+    if isinstance(loader, Loader):
+        return loader.sliced_batches()
+    return ((batch, False) for batch in loader)

@@ -11,6 +11,11 @@ is the host suite's.
 Row layout matches ``evaluation.pair_metrics``: [mm_vector,
 mm_direction, mm_length, mm_position, mm_duration, sm_wod, sm_wd, sed,
 stde].
+
+Over ranks (``train/mesh.py``) each rank computes the rows of its rows
+of every batch; rank 0 gathers them in one process's order (not sums:
+the standard deviations and the AiR buckets need every row) and
+aggregates, and every rank returns rank 0's result.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..data.datasets import batches_of
+from ..train import mesh
 from . import torch_metrics as tm
 from .evaluation import _bucketize, _summarize
 
@@ -79,88 +86,114 @@ def _gt_tensors(batch, device):
             torch.as_tensor(np.asarray(batch["gt_len"]), device=device))
 
 
+def _human_images(m, batch):
+    """Per image of a batch, from its [N, S, S, 9] :func:`human_rows`:
+    (name, the leave-one-out rows, their group sizes)."""
+    mask = np.asarray(batch["gt_mask"]).astype(bool)
+    out = []
+    for bi in range(m.shape[0]):
+        ns = int(mask[bi].sum())
+        rows, sizes = [], []
+        for i in range(ns):
+            rows.extend(m[bi, i, j] for j in range(ns) if j != i)
+            sizes.append(ns - 1)
+        out.append((batch["img_names"][bi], rows, sizes))
+    return out
+
+
+def _human_images_air(m, batch):
+    """AiR per image (reference AiR/utils/evaluation.py:11-186: NaN pairs
+    skipped entirely, buckets by answer-correctness pairs): (question id,
+    all rows, right-answer pairs, wrong-answer pairs)."""
+    mask = np.asarray(batch["gt_mask"]).astype(bool)
+    out = []
+    for bi in range(m.shape[0]):
+        ns = int(mask[bi].sum())
+        performances = list(batch["performances"][bi])
+        allr, right, wrong = [], [], []
+        for i in range(ns):
+            for j in range(ns):
+                if i == j:
+                    continue
+                r = m[bi, i, j]
+                if np.any(np.isnan(r)):
+                    continue
+                allr.append(r)
+                if performances[i] and performances[j]:
+                    right.append(r)
+                elif not performances[i] and not performances[j]:
+                    wrong.append(r)
+        out.append((batch["question_ids"][bi], allr, right, wrong))
+    return out
+
+
+def _human_summary(images):
+    rows = [r for _, rs, _ in images for r in rs]
+    sizes = [g for _, _, gs in images for g in gs]
+    per_image = {name: list(np.asarray(rs, np.float64).mean(axis=0))
+                 for name, rs, _ in images}
+    metrics, stds = _summarize(np.asarray(rows, np.float64), sizes,
+                               mm_dropna=False)
+    return metrics, stds, per_image
+
+
+def _human_summary_air(images):
+    per_qid = {}
+    for qid, _, right, wrong in images:
+        good = list(np.asarray(right, np.float64).mean(0)) if right \
+            else [0.0] * 9
+        poor = list(np.asarray(wrong, np.float64).mean(0)) if wrong \
+            else [0.0] * 9
+        per_qid[qid] = {True: good, False: poor}
+    metrics, stds = _bucketize([img[1:] for img in images])
+    return metrics, stds, per_qid
+
+
 def human_evaluation_device(loader, spec_wd: tm.ScanMatchSpec,
                             spec_wod: tm.ScanMatchSpec, task: str = "osie",
                             device="cuda"):
     """Device human inter-observer baseline — the drop-in replacement
     for ``evaluation.human_evaluation`` under ``--device_eval`` (same
     (metrics, stds, per_image) return tree, aggregation shared with the
-    host suite).  Batches are host (numpy) batches; their GT goes to
-    ``device``, the card unless the caller asks for the CPU."""
-    if task == "air":
-        return _human_evaluation_air_device(loader, spec_wd, spec_wod,
-                                            device)
-    rows, group_sizes = [], []
-    per_image = {}
-    for batch in loader:
+    host suite; AiR bucketed by answer correctness).  Batches are host
+    (numpy) batches; their GT goes to ``device``, the card unless the
+    caller asks for the CPU.  Over ranks each rank computes the rows of
+    the rows it counts (``mesh.counts_rows``) and every rank returns rank
+    0's aggregate of all of them."""
+    per_batch = _human_images_air if task == "air" else _human_images
+    chunks = []
+    for b, (batch, sliced) in enumerate(batches_of(loader)):
+        if not mesh.counts_rows(sliced):
+            continue
         m = human_rows(spec_wd, spec_wod, *_gt_tensors(batch, device))
-        mask = np.asarray(batch["gt_mask"]).astype(bool)
-        for bi in range(m.shape[0]):
-            ns = int(mask[bi].sum())
-            img_scores = []
-            for i in range(ns):
-                g = 0
-                for j in range(ns):
-                    if i == j:
-                        continue
-                    r = m[bi, i, j]
-                    rows.append(r)
-                    img_scores.append(r)
-                    g += 1
-                group_sizes.append(g)
-            per_image[batch["img_names"][bi]] = list(
-                np.asarray(img_scores, np.float64).mean(axis=0))
-    metrics, stds = _summarize(np.asarray(rows, np.float64), group_sizes,
-                               mm_dropna=False)
-    return metrics, stds, per_image
-
-
-def _human_evaluation_air_device(loader, spec_wd, spec_wod, device):
-    """AiR bucketed human baseline on device rows (reference
-    AiR/utils/evaluation.py:11-186: NaN pairs skipped entirely, buckets
-    by answer-correctness pairs, per-question good/poor means)."""
-    rows_by_group = []
-    per_qid = {}
-    for batch in loader:
-        m = human_rows(spec_wd, spec_wod, *_gt_tensors(batch, device))
-        mask = np.asarray(batch["gt_mask"]).astype(bool)
-        for bi in range(m.shape[0]):
-            ns = int(mask[bi].sum())
-            performances = list(batch["performances"][bi])
-            allr, right, wrong = [], [], []
-            for i in range(ns):
-                for j in range(ns):
-                    if i == j:
-                        continue
-                    r = m[bi, i, j]
-                    if np.any(np.isnan(r)):
-                        continue
-                    allr.append(r)
-                    if performances[i] and performances[j]:
-                        right.append(r)
-                    elif not performances[i] and not performances[j]:
-                        wrong.append(r)
-            rows_by_group.append((allr, right, wrong))
-            good = list(np.asarray(right, np.float64).mean(0)) if right \
-                else [0.0] * 9
-            poor = list(np.asarray(wrong, np.float64).mean(0)) if wrong \
-                else [0.0] * 9
-            per_qid[batch["question_ids"][bi]] = {True: good, False: poor}
-    metrics, stds = _bucketize(rows_by_group)
-    return metrics, stds, per_qid
+        chunks.append(((b, mesh.row_offset(sliced, m.shape[0])),
+                       per_batch(m, batch)))
+    gathered = mesh.gather_to_primary(chunks)
+    result = None
+    if gathered is not None:
+        images = [img for _, imgs in gathered for img in imgs]
+        result = (_human_summary_air if task == "air"
+                  else _human_summary)(images)
+    return mesh.broadcast_object(result)
 
 
 class DeviceSweep:
     """Accumulates device-computed pair rows across evaluation batches
     and reproduces ``evaluation(...)``'s aggregation exactly, or, fed by
-    :meth:`add_batch_air`, ``evaluation_performance_related(...)``'s."""
+    :meth:`add_batch_air`, ``evaluation_performance_related(...)``'s.
+    Each add takes a ``key`` that orders it as one process adds it; over
+    ranks :meth:`result` gathers every rank's adds to rank 0 in key
+    order."""
 
     def __init__(self, spec_wd: tm.ScanMatchSpec,
                  spec_wod: tm.ScanMatchSpec):
         self.spec_wd = spec_wd
         self.spec_wod = spec_wod
-        self._rows: list[np.ndarray] = []      # one [G, 9] per group
-        self._buckets = []                     # air: (all, right, wrong)
+        # (key, (per-image groups, truncated rollouts, rollouts)) per add;
+        # a group is an image's [G, 9] rows, or for AiR its (all, right,
+        # wrong) buckets
+        self._adds: list = []
+        self._air = False
         self._overflow = 0                     # truncated rollouts
         self._preds = 0                        # rollouts seen
 
@@ -169,7 +202,8 @@ class DeviceSweep:
         """{count, total, frac} of prediction rollouts whose TempBin
         expansion overflowed the w/-duration table (prefix-truncated on
         the device; a nonzero frac means the with-duration ScanMatch
-        column may read differently from a host-suite run)."""
+        column may read differently from a host-suite run); over ranks,
+        after :meth:`result`, the counts of every rank."""
         return {"count": self._overflow, "total": self._preds,
                 "frac": self._overflow / max(self._preds, 1)}
 
@@ -187,7 +221,7 @@ class DeviceSweep:
                 f"prefix-truncated — the with-duration ScanMatch column "
                 f"may differ from a host-suite run")
 
-    def _compute_rows(self, gt_fix, gt_len, pred_fix, pred_len) -> np.ndarray:
+    def _compute_rows(self, gt_fix, gt_len, pred_fix, pred_len):
         """Pair rows and the overflow count, read back together in one
         host sync.  Inputs are tensors on one device."""
         rows = pair_rows(self.spec_wd, self.spec_wod, gt_fix, gt_len,
@@ -197,25 +231,28 @@ class DeviceSweep:
         out = out.cpu().numpy()
         self._overflow += int(out[-1])
         self._preds += int(pred_len.shape[0])
-        return out[:-1].reshape(rows.shape)
+        return out[:-1].reshape(rows.shape), int(out[-1])
 
-    def add_batch(self, gt_fix, gt_len, gt_mask, pred_fix, pred_len):
+    def add_batch(self, gt_fix, gt_len, gt_mask, pred_fix, pred_len,
+                  key=()):
         """One decode repeat of one batch: gt_* [N, S, ...] (mask 1 =
         real subject), pred_* [N, ...]."""
-        rows = self._compute_rows(gt_fix, gt_len, pred_fix, pred_len)
+        rows, ov = self._compute_rows(gt_fix, gt_len, pred_fix, pred_len)
         mask = torch.as_tensor(gt_mask).cpu().numpy().astype(bool)
-        for i in range(rows.shape[0]):
-            self._rows.append(rows[i][mask[i]])
+        self._adds.append((key, ([rows[i][mask[i]]
+                                  for i in range(rows.shape[0])],
+                                 ov, rows.shape[0])))
 
     def add_batch_air(self, gt_fix, gt_len, gt_mask, pred_fix, pred_len,
-                      performances, allocated):
+                      performances, allocated, key=()):
         """AiR bucketed variant: ``performances`` is a ragged list (per
         image) of subject flags, ``allocated`` the stream flag of these
         predictions (True for good).  Mirrors
         evaluation_performance_related's NaN skip and (perf == alloc)
         bucketing (reference AiR/utils/evaluation.py:188-359)."""
-        rows = self._compute_rows(gt_fix, gt_len, pred_fix, pred_len)
+        rows, ov = self._compute_rows(gt_fix, gt_len, pred_fix, pred_len)
         mask = torch.as_tensor(gt_mask).cpu().numpy().astype(bool)
+        buckets = []
         for i in range(rows.shape[0]):
             r = rows[i][mask[i]]
             allr, right, wrong = [], [], []
@@ -227,12 +264,25 @@ class DeviceSweep:
                     right.append(row)
                 elif not perf and not allocated:
                     wrong.append(row)
-            self._buckets.append((allr, right, wrong))
+            buckets.append((allr, right, wrong))
+        self._air = True
+        self._adds.append((key, (buckets, ov, rows.shape[0])))
 
     def result(self):
-        """(metrics, stds) with the host suite's exact aggregation."""
-        if self._buckets:
-            return _bucketize(self._buckets)
-        sizes = [len(r) for r in self._rows]
-        rows = np.concatenate([r for r in self._rows if len(r)], axis=0)
-        return _summarize(rows, sizes)
+        """(metrics, stds) with the host suite's exact aggregation, on
+        every rank (rank 0's, of every rank's adds in key order)."""
+        gathered = mesh.gather_to_primary(self._adds)
+        out = None
+        if gathered is not None:
+            groups = [g for _, (gs, _, _) in gathered for g in gs]
+            counts = (sum(v[1] for _, v in gathered),
+                      sum(v[2] for _, v in gathered))
+            if self._air:
+                out = _bucketize(groups) + counts
+            else:
+                sizes = [len(r) for r in groups]
+                rows = np.concatenate([r for r in groups if len(r)], axis=0)
+                out = _summarize(rows, sizes) + counts
+        metrics, stds, self._overflow, self._preds = \
+            mesh.broadcast_object(out)
+        return metrics, stds

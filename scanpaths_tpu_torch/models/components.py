@@ -9,6 +9,14 @@ Parameters are held in torch layouts (``nn.Conv2d`` OIHW, ``nn.Linear``
 public function, as in the JAX package.  Each module computes in its
 ``dtype`` (float32 or bfloat16) with float32 parameters cast at use, as
 flax's ``dtype`` does.
+
+Under row-parallel tensor parallelism (``train/tp_step.py``) the h-gate
+and x-gate kernels hold this rank's block of their input channels; the
+training forward then contracts that block and sums the partial results
+over the model group (:func:`tp_row_conv`, the JAX package's
+``tp_row_conv``).  The eval forward's cell kernel fuses the whole
+contraction with its epilogue, so it takes the gathered kernel
+(``tp_step.gathered``).
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cell as cell_ops
+from ..train import mesh
 
 NEG_INF = -1e9
 
@@ -61,6 +70,26 @@ def conv2d(x, kernel, bias=None, strides=(1, 1), padding=((0, 0), (0, 0)),
     return out
 
 
+def tp_row_conv(x, weight):
+    """The 3x3 'same' conv (no bias) of an NHWC ``x``, replicated over the
+    model group, with an OIHW ``weight`` that holds this rank's contiguous
+    block of ``x``'s channels: the block's partial contraction, summed
+    over the model group (``mesh.tp_enter`` on the input, ``mesh.tp_exit``
+    on the output, so the gradients of ``x`` and of the replicated layers
+    around the block are whole on every rank).  In ``weight``'s dtype."""
+    shard = weight.shape[1]
+    xs = mesh.tp_enter(x).narrow(-1, mesh.model_index() * shard, shard)
+    out = F.conv2d(xs.permute(0, 3, 1, 2).to(weight.dtype), weight,
+                   padding=1)
+    return mesh.tp_exit(out).permute(0, 2, 3, 1)
+
+
+def sliced(weight, x) -> bool:
+    """Whether a conv ``weight`` holds a block of ``x``'s channels (the TP
+    layout of ``train/tp_step.py``) rather than all of them."""
+    return weight.shape[1] != x.shape[-1]
+
+
 def dense(lin: nn.Linear, x, dtype):
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
@@ -75,6 +104,9 @@ class XGates(nn.Module):
         self.gates_x = nn.Conv2d(embed, 4 * embed, 3, padding=1)
 
     def forward(self, visual):
+        if sliced(self.gates_x.weight, visual):
+            out = tp_row_conv(visual, self.gates_x.weight.to(self.dtype))
+            return out + self.gates_x.bias.to(self.dtype)
         k, b = hwio(self.gates_x)
         return conv2d(visual, k, b, padding=((1, 1), (1, 1)),
                       dtype=self.dtype)
@@ -123,6 +155,10 @@ class FusedConvLSTMCell(nn.Module):
 
     def gate_kernel(self):
         """The h-gate kernel in the cell's layout: HWIO [3, 3, C, 4C]."""
+        if self.gates_h.weight.shape[1] != self.embed:
+            raise ValueError("the cell kernel takes the whole h-gate kernel: "
+                             "gather the sliced kernels first "
+                             "(train/tp_step.py::gathered)")
         return hwio(self.gates_h)[0].to(self.dtype).contiguous()
 
     def fold_bias(self, xg):
@@ -150,10 +186,15 @@ class FusedConvLSTMCell(nn.Module):
         the compute dtype, the nonlinearities and state update in float32,
         h' and c' stored in h's dtype).  ``weight`` is the h-gate kernel
         OIHW in the compute dtype (``gates_h.weight``, cast once per
-        forward by the caller).  Returns (h', c')."""
+        forward by the caller), or its block of h's channels under TP
+        (:func:`tp_row_conv`; the bias is folded in ``xg``, the signal
+        taps are added after the sum).  Returns (h', c')."""
         n, hh, ww, ch = h.shape
-        acc = F.conv2d(h.permute(0, 3, 1, 2), weight, padding=1)
-        acc = acc.permute(0, 2, 3, 1).float()
+        if sliced(weight, h):
+            acc = tp_row_conv(h, weight).float()
+        else:
+            acc = F.conv2d(h.permute(0, 3, 1, 2), weight, padding=1)
+            acc = acc.permute(0, 2, 3, 1).float()
         smaps = torch.stack([s for s, _ in signals], dim=-1).to(self.dtype)
         kps = torch.stack([self._sgate(i).kp(cv)
                            for i, (_, cv) in enumerate(signals)], dim=1)

@@ -101,13 +101,14 @@ def batch_norm(x, bn: nn.BatchNorm2d, train: bool):
     updated in place to ``0.9 running + 0.1 batch`` with that biased
     variance (``nn.BatchNorm2d``'s own update takes the unbiased one);
     else normalised by the running statistics.  Under data parallel the
-    batch is the GLOBAL one, as under the JAX package's mesh
+    batch is the GLOBAL one, over the data ranks (the ranks of a model
+    group share their rows), as under the JAX package's mesh
     (:func:`_global_batch_norm`).  Statistics in float32, the output in
     x's dtype."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
-    if mesh.active():
+    if mesh.distributed():
         return _global_batch_norm(x, bn)
     with torch.no_grad():
         var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),

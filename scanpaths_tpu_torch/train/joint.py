@@ -27,12 +27,14 @@ the validation decodes in run order, as the JAX trainer splits one key
 for both.  AiR's validation decodes both streams, good then poor, from
 one eval forward.
 
-Data parallel as the single-task trainer (``train/trainer.py``): each
-rank loads its slice of every task's global batches, in the same
-round-robin order (every rank draws the same shuffles); rank 0 writes
-the run and validates every head.  The idle heads' zero-filled
-gradients are reduced with the others, so decay and Adam move them
-alike on every rank.
+Over ranks as the single-task trainer (``train/trainer.py``): each
+rank loads its data rank's slice of every task's global batches, in the
+same round-robin order (every rank draws the same shuffles); every rank
+validates its rows of every head's split and rank 0 aggregates and
+writes the run.  The idle heads' zero-filled gradients are reduced with
+the others, so decay and Adam move them alike on every rank.  Under
+``--model_parallel`` every head's two decode kernels are sliced over the
+model group (``train/tp_step.py``).
 
 Data layout under ``--joint_data_root`` (``tools/make_synth_data.py``'s):
   osie/stimuli osie/fixations
@@ -54,7 +56,7 @@ from ..models.port import (load_joint_reference_state_dict,
                            to_joint_reference_state_dict)
 from ..models.scanpath_model import TaskView, init_weights, model_from_flags
 from ..utils.checkpointing import restore_checkpoint
-from . import mesh, steps
+from . import mesh, steps, tp_step
 from .trainer import (EvalCore, RunFiles, adam_step, check_ported_flags,
                       grid_spec, load_backbone, log_metric_tree, rl_config,
                       train_loaders)
@@ -88,7 +90,7 @@ def task_data_config(args, task: str) -> DataConfig:
 
 class TaskContext(EvalCore):
     """One task of a joint run: its loaders (seeded as the single-task
-    trainer's; the validation loader on rank 0 only), its SCST settings
+    trainer's; this rank's slice of each), its SCST settings
     and the evaluation plumbing over the joint model's head of the task,
     with the trainer's noise generator, logger and writer; its scalars
     are tagged ``<task>/``."""
@@ -101,8 +103,7 @@ class TaskContext(EvalCore):
         self.tag_prefix = f"{task}/"
         self.model = TaskView(trainer.model, task)
         self.train_loader, self.train_rl_loader, self.validation_loader = \
-            train_loaders(args, task, task_data_config(args, task),
-                          trainer.mesh)
+            train_loaders(args, task, task_data_config(args, task))
         self.rl_cfg = rl_config(args, self.train_rl_loader.dataset, task)
 
 
@@ -120,8 +121,8 @@ def round_robin(loaders: dict):
 
 class JointTrainer(RunFiles):
     """The joint run of ``cli/train.py --task joint`` on ``device`` (the
-    card unless the caller asks for the CPU), one rank of a data-parallel
-    run when a process group is initialised (``train/mesh.py``)."""
+    card unless the caller asks for the CPU), one rank of a data x model
+    mesh when a process group is initialised (``train/mesh.py``)."""
 
     def __init__(self, args, device="cuda"):
         if args.task != "joint":
@@ -153,7 +154,7 @@ class JointTrainer(RunFiles):
                 load_joint_reference_state_dict(restored["model"]))
             opt_state = restored["optimizer"]
             step = adam_step(opt_state)
-        self.state = steps.TrainState.create(
+        self.state = tp_step.train_state_class().create(
             self.model, args, steps_sup, steps_rl, step=step,
             device=self.device, opt_state=opt_state)
         self.epoch_stats: dict = {}
@@ -234,8 +235,8 @@ class JointTrainer(RunFiles):
         as ``current metric``, and returned)."""
         hmeans = []
         for task, ctx in self.tasks.items():
-            metrics, stds = ctx.evaluate(ctx.validation_loader, device_eval,
-                                         iteration)
+            metrics, stds, _ = ctx.evaluate(ctx.validation_loader,
+                                            device_eval, iteration)
             hmeans.append(ctx.selection_metric(metrics))
             self.logger.info(
                 f"[{task}] validation{' (device sweep)' if device_eval else ''}"
@@ -261,17 +262,16 @@ class JointTrainer(RunFiles):
         args = self.args
         start_epoch = self.record_manager.get_epoch()
         iteration = self.record_manager.get_iteration()
-        primary = self.mesh.is_primary
-        if args.resume_dir == "" and primary:
+        if args.resume_dir == "":
             self.human_baseline()
         for epoch in range(start_epoch + 1, args.epoch):
             iteration = self.train_epoch(iteration, epoch)
-            cur, model_state = None, None
-            if primary:
-                cur = self.validation(iteration, args.device_eval)
-                self.logger.info(f"joint metric: {cur:.4f}")
-                model_state = to_joint_reference_state_dict(
-                    self.model.state_dict(), self.model.map_h,
-                    self.model.map_w)
+            # every rank validates its rows and takes rank 0's metrics
+            cur = self.validation(iteration, args.device_eval)
+            self.logger.info(f"joint metric: {cur:.4f}")
+            state = tp_step.full_state_dict(self.model)
+            model_state = (to_joint_reference_state_dict(
+                state, self.model.map_h, self.model.map_w)
+                if self.mesh.is_primary else None)
             self.end_epoch(epoch, cur, iteration, model_state)
         return self.close_run()

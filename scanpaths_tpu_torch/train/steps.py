@@ -47,7 +47,12 @@ global batch's statistics (``models/resnet.py``), the metrics reduce
 their numerators and denominators, not their ratios, and the SCST noise
 is drawn for the global batch on every rank from a generator seeded
 alike, each rank keeping its rows, so N ranks sample one process's
-rollouts.  With no process group every one of these is the identity.
+rollouts.  Every reduction is over the data ranks (``mesh``'s data
+group); with one data rank each is the identity.  Under row-parallel
+tensor parallelism (``train/tp_step.py``) the same steps drive a
+``TPTrainState``: the model ranks of one data rank hold the same rows,
+draw the same rollouts and compute the same losses, and the state's
+clip takes the global norm over the sliced kernels.
 """
 
 from __future__ import annotations
@@ -134,12 +139,17 @@ class TrainState:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         mesh.reduce_gradients(params)
-        norm = torch.nn.utils.clip_grad_norm_(
-            params, self.clip if self.clip > 0 else math.inf)
+        norm = self.clip_gradients(params)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
         return norm.detach()
+
+    def clip_gradients(self, params) -> torch.Tensor:
+        """Clips the gradients of ``params`` by their global norm (when
+        ``clip`` > 0); returns the norm."""
+        return torch.nn.utils.clip_grad_norm_(
+            params, self.clip if self.clip > 0 else math.inf)
 
 
 def _model_inputs(task: str, batch: dict) -> dict:
@@ -285,7 +295,7 @@ def _rollouts(cfg: RLConfig, probs, mu, sigma2, generator, noise):
     it."""
     if noise is None:
         noise = sample_noise(probs, mu, generator, cfg.rl_sample_number,
-                             batch=probs.shape[0] * mesh.world_size())
+                             batch=probs.shape[0] * mesh.data_size())
     return random_sample_from_noise(
         probs, mu, sigma2, cfg.grid, *(mesh.slice_rows(z, 1) for z in noise))
 

@@ -28,18 +28,22 @@ NW kernel) or with the host suite.  The eval forward is the kernels'
 path (``ScanpathModel.forward``, no gradients); the training steps run
 the stock-op forward (``train/steps.py``).
 
-Data parallel (``cli/train.py`` under torchrun, ``train/mesh.py``):
-every rank builds the same model from the seed, loads its slice of each
-global ``--batch`` and takes the same steps (``train/steps.py`` makes
-them global).  Rank 0 alone writes the run (hparams.json,
-log_train.txt, the scalars, the record, the checkpoints, the
-``_supervised_save`` copy) and runs the human baseline and the
-validations, on the full validation split; its log dir name is
-broadcast, and after each validation so is its generator's state (the
-generator that feeds both the SCST rollouts and the validation
-decodes), so the other ranks' next rollouts stay in lockstep.  The ranks
-meet at a barrier after each checkpoint write; a resume restores rank
-0's files on every rank.
+Over ranks (``cli/train.py`` and ``cli/test.py`` under torchrun,
+``train/mesh.py``): every rank builds the same model from the seed and
+loads its data rank's slice of each global ``--batch``, of the training
+and of the evaluation splits (the ranks of a model group load the same
+rows); every rank takes the same steps (``train/steps.py`` makes them
+global; under ``--model_parallel`` over the sliced state of
+``train/tp_step.py``).  The human baseline and every validation run on
+every rank: each decodes and scores its rows, drawing the sampler's
+noise for the global batch and keeping its rows, so the ranks' draws are
+one process's; rank 0 gathers the scored rows in one process's order,
+aggregates and logs them, and every rank takes its metrics, so every
+rank selects alike.  Rank 0 alone writes the run (hparams.json,
+log_train.txt, the scalars, the record, the checkpoints, gathered whole
+under TP, the ``_supervised_save`` copy); its log dir name is broadcast.
+The ranks meet at a barrier after each checkpoint write; a resume
+restores rank 0's files on every rank.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ import torch
 
 from ..core.grid import GridSpec
 from ..data.datasets import (DataConfig, EvaluationDataset, Loader,
-                             SupervisedDataset)
+                             SupervisedDataset, batches_of)
 from ..data.prefetch import prefetch
 from ..metrics import evaluation as heval
 from ..metrics import torch_metrics as tm
@@ -68,18 +72,22 @@ from ..metrics.device_eval import DeviceSweep, human_evaluation_device
 from ..models import resnet
 from ..models.port import load_reference_state_dict, to_reference_state_dict
 from ..models.scanpath_model import init_weights, model_from_flags
-from ..ops.sampling import random_sample, to_fix_vectors
+from ..ops import sampling
+from ..ops.sampling import to_fix_vectors
 from ..serve.predictor import Predictor, eval_forward, trained_task
 from ..utils.checkpointing import CheckpointManager, restore_checkpoint
 from ..utils.logger import Logger, task_log_level
 from ..utils.recording import RecordManager
-from . import mesh, steps
+from . import mesh, steps, tp_step
 
 # (stream, the answer-correctness flag its rollouts are scored under) of
 # each decode of a batch: AiR decodes its good and poor streams from one
 # eval forward, the other tasks their one stream
 STREAMS = {"air": (("good", True), ("poor", False))}
 ONE_STREAM = ((None, None),)
+# the host fields of an evaluation batch the host suite's human baseline
+# reads
+HUMAN_KEYS = ("fix_vectors", "img_names", "performances", "question_ids")
 
 
 class ScalarWriter:
@@ -222,13 +230,10 @@ def log_metric_tree(logger, metrics, stds, writer=None, iteration: int = 0,
 
 def check_ported_flags(args) -> None:
     """Raise for each flag whose feature the port does not have, naming
-    the ROADMAP item that ports it, and for a ``--mesh_size`` the launch
-    does not give (``mesh.check_mesh_size``)."""
+    the ROADMAP item that ports it, and for a ``--mesh_size`` or
+    ``--model_parallel`` the launch does not give
+    (``mesh.check_mesh_size``, ``mesh.check_model_parallel``)."""
     refused = [
-        (args.model_parallel > 1,
-         "--model_parallel > 1: row-parallel tensor parallelism is not "
-         "ported (ROADMAP A13b); data parallel is --mesh_size under "
-         "torchrun"),
         (args.ckpt_backend == "orbax",
          "--ckpt_backend orbax: async checkpoint saves are not ported "
          "(ROADMAP A17)"),
@@ -242,7 +247,8 @@ def check_ported_flags(args) -> None:
     for bad, why in refused:
         if bad:
             raise NotImplementedError(why)
-    mesh.check_mesh_size(args.mesh_size)
+    mesh.check_model_parallel(args.model_parallel,
+                              mesh.check_mesh_size(args.mesh_size))
 
 
 def load_backbone(backbone: resnet.DilatedResNet50, path: str,
@@ -286,28 +292,37 @@ class EvalCore:
                             batch["images"], batch.get("attention_maps"),
                             batch.get("tasks"))
 
-    def sample(self, out: dict, repeat_num: int, stream: str | None):
+    def sample(self, out: dict, repeat_num: int, stream: str | None,
+               sliced: bool = False):
         """``repeat_num`` scanpaths per image from one stream's eval
         outputs, drawn from ``self.generator``; every leaf leads with
-        [R]."""
+        [R].  For a ``sliced`` batch (this data rank's rows of a global
+        one) the noise is drawn for the global batch and this rank keeps
+        its rows, so the ranks draw one process's noise."""
         pre = f"{stream}_" if stream else ""
-        return random_sample(out[pre + "all_actions_prob"],
-                             out[pre + "log_normal_mu"],
-                             out[pre + "log_normal_sigma2"], self.grid,
-                             self.generator, rollouts=repeat_num)
+        probs, mu = out[pre + "all_actions_prob"], out[pre + "log_normal_mu"]
+        n = probs.shape[0]
+        noise = sampling.sample_noise(
+            probs, mu, self.generator, repeat_num,
+            batch=n * mesh.data_size() if sliced else n)
+        if sliced:
+            noise = [mesh.slice_rows(z, 1) for z in noise]
+        return sampling.random_sample_from_noise(
+            probs, mu, out[pre + "log_normal_sigma2"], self.grid, *noise)
 
-    def decode_batch_device(self, batch, repeat_num: int, streams=(None,)):
+    def decode_batch_device(self, batch, repeat_num: int, streams=(None,),
+                            sliced: bool = False):
         """One eval forward of a host batch, then ``repeat_num``
         stochastic decodes of each stream in ``streams`` (``"good"`` /
         ``"poor"`` read the AiR outputs of that prefix; both streams come
-        from one forward).  Returns the batch's ground truth as device
-        tensors (``gt_fix``, ``gt_len``, ``gt_mask``) and the samples of
-        each stream ([R, N, ...] leaves, on the device), which the device
-        sweep consumes as they are."""
+        from one forward; ``sliced`` as in :meth:`sample`).  Returns the
+        batch's ground truth as device tensors (``gt_fix``, ``gt_len``,
+        ``gt_mask``) and the samples of each stream ([R, N, ...] leaves,
+        on the device), which the device sweep consumes as they are."""
         db = {k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
               for k in ("gt_fix", "gt_len", "gt_mask")}
         out = self.forward(batch)
-        return db, [self.sample(out, repeat_num, s) for s in streams]
+        return db, [self.sample(out, repeat_num, s, sliced) for s in streams]
 
     def decode_batch(self, batch, repeat_num: int, stream=None):
         """Eval forward + ``repeat_num`` stochastic decodes of one stream;
@@ -318,15 +333,24 @@ class EvalCore:
 
     def human_metrics(self, loader, device_eval: bool):
         """The human inter-observer baseline of an evaluation split:
-        (metrics, stds), on the device under ``device_eval``."""
+        (metrics, stds), on the device under ``device_eval``.  Over ranks
+        each rank scores its rows on the device, or with the host suite
+        rank 0 scores every rank's rows; every rank returns rank 0's
+        result."""
         if device_eval:
             spec_wd, spec_wod = eval_specs(loader.dataset, self.grid)
             metrics, stds, _ = human_evaluation_device(
                 loader, spec_wd, spec_wod, task=self.task,
                 device=self.device)
-        else:
-            metrics, stds, _ = heval.human_evaluation(loader, task=self.task)
-        return metrics, stds
+            return metrics, stds
+        chunks = [((b, mesh.row_offset(sliced, len(batch["fix_vectors"]))),
+                   {k: batch[k] for k in HUMAN_KEYS if k in batch})
+                  for b, (batch, sliced) in enumerate(batches_of(loader))
+                  if mesh.counts_rows(sliced)]
+        gathered = mesh.gather_to_primary(chunks)
+        result = None if gathered is None else heval.human_evaluation(
+            [rows for _, rows in gathered], task=self.task)[:2]
+        return mesh.broadcast_object(result)
 
     def evaluate(self, loader, device_eval: bool, iteration: int = 0,
                  record=None):
@@ -337,58 +361,90 @@ class EvalCore:
         becomes the ``metrics/wd_overflow_frac`` scalar at
         ``iteration``), else with the host suite (bucketed by answer
         correctness for AiR).  ``record(batch, flag, r, preds)``, when
-        given, receives each repeat's per-image fixation vectors.  The
-        model is in eval mode for the loop and back in its previous mode
-        after it.  Returns (metrics, stds)."""
+        given, returns the records of each repeat's per-image fixation
+        vectors.  The model is in eval mode for the loop, its sliced
+        kernels gathered whole (``tp_step.gathered``), and back in its
+        previous mode after it.
+
+        Over ranks each rank decodes its rows of every batch (the ranks
+        of a model group the same rows; a batch every rank holds whole
+        counts on data rank 0) and scores the rows it counts
+        (``mesh.counts_rows``); rank 0 gathers the scored rows (or the
+        host suite's inputs) and the records in one process's order and
+        aggregates.  Returns (metrics, stds) on every rank and the
+        records, in one process's order on rank 0 (empty elsewhere)."""
         repeat = self.args.eval_repeat_num
         streams = STREAMS.get(self.task, ONE_STREAM)
+        air = self.task == "air"
         sweep = (DeviceSweep(*eval_specs(loader.dataset, self.grid))
                  if device_eval else None)
-        all_gt, all_pred, all_perf, all_alloc = [], [], [], []
+        host, records = [], []
         was_training = self.model.training
         self.model.eval()
         try:
-            for batch in loader:
-                n = len(batch["fix_vectors"])
-                db, per_stream = self.decode_batch_device(
-                    batch, repeat, [s for s, _ in streams])
-                for (_, flag), samples in zip(streams, per_stream):
-                    preds = (to_fix_vectors(samples)      # repeat-major
-                             if sweep is None or record is not None
-                             else None)
-                    for r in range(repeat):
-                        if sweep is not None:
-                            # pairwise metrics stay on the device; the
-                            # host only aggregates
-                            gt = (db["gt_fix"], db["gt_len"], db["gt_mask"],
-                                  samples.fix[r], samples.fix_len[r])
-                            if self.task == "air":
-                                sweep.add_batch_air(
-                                    *gt, batch["performances"], flag)
+            with tp_step.gathered(self.model):
+                for b, (batch, sliced) in enumerate(batches_of(loader)):
+                    n = len(batch["fix_vectors"])
+                    db, per_stream = self.decode_batch_device(
+                        batch, repeat, [s for s, _ in streams], sliced)
+                    if not mesh.counts_rows(sliced):
+                        continue
+                    first = mesh.row_offset(sliced, n)
+                    for si, ((_, flag), samples) in enumerate(
+                            zip(streams, per_stream)):
+                        preds = (to_fix_vectors(samples)   # repeat-major
+                                 if sweep is None or record is not None
+                                 else None)
+                        for r in range(repeat):
+                            key = (b, si, r, first)
+                            mine = None if preds is None \
+                                else preds[r * n:(r + 1) * n]
+                            if sweep is not None:
+                                # pairwise metrics stay on the device;
+                                # the host only aggregates
+                                gt = (db["gt_fix"], db["gt_len"],
+                                      db["gt_mask"], samples.fix[r],
+                                      samples.fix_len[r])
+                                if air:
+                                    sweep.add_batch_air(
+                                        *gt, batch["performances"], flag,
+                                        key=key)
+                                else:
+                                    sweep.add_batch(*gt, key=key)
                             else:
-                                sweep.add_batch(*gt)
-                        else:
-                            all_gt.extend(batch["fix_vectors"])
-                            if self.task == "air":
-                                all_perf.extend(batch["performances"])
-                                all_alloc.extend([flag] * n)
-                            all_pred.extend(preds[r * n:(r + 1) * n])
-                        if record is not None:
-                            record(batch, flag, r, preds[r * n:(r + 1) * n])
+                                host.append((key, (
+                                    batch["fix_vectors"], mine,
+                                    batch["performances"] if air else None,
+                                    flag)))
+                            if record is not None:
+                                records.append((key, record(batch, flag, r,
+                                                            mine)))
         finally:
             self.model.train(was_training)
+        records = [rec for _, recs in mesh.gather_to_primary(records) or ()
+                   for rec in recs]
         if sweep is not None:
             metrics, stds = sweep.result()
             sweep.log_overflow(
                 self.logger, self.writer,
                 tag=f"{self.tag_prefix}metrics/wd_overflow_frac",
                 step=iteration)
-        elif self.task == "air":
-            metrics, stds, _ = heval.evaluation_performance_related(
-                all_gt, all_pred, all_perf, all_alloc)
-        else:
-            metrics, stds, _ = heval.evaluation(all_gt, all_pred)
-        return metrics, stds
+            return metrics, stds, records
+        gathered = mesh.gather_to_primary(host)
+        result = None
+        if gathered is not None:
+            all_gt, all_pred, all_perf, all_alloc = [], [], [], []
+            for _, (gts, preds, perfs, flag) in gathered:
+                all_gt.extend(gts)
+                all_pred.extend(preds)
+                if air:
+                    all_perf.extend(perfs)
+                    all_alloc.extend([flag] * len(gts))
+            result = (heval.evaluation_performance_related(
+                all_gt, all_pred, all_perf, all_alloc) if air
+                else heval.evaluation(all_gt, all_pred))[:2]
+        metrics, stds = mesh.broadcast_object(result)
+        return metrics, stds, records
 
     def selection_metric(self, cur_metrics) -> float:
         if self.task == "air":
@@ -404,23 +460,21 @@ class Evaluator(EvalCore):
     run's best checkpoint (``<log_dir>/checkpoints/checkpoint_best.pth``,
     reference layout, loaded by ``serve/predictor.py``; of a joint run,
     the ``--task`` head) on an explicit device, its sampler seeded by
-    ``--seed``, and the logger of ``<log_dir>/log_test.txt``; no train
-    loaders and no optimizer (the reference test drivers touch only the
-    eval split, AiR/test.py:60-104)."""
+    ``--seed``, and the logger of ``<log_dir>/log_test.txt`` (rank 0's;
+    one rank of ``cli/test.py`` under torchrun when a process group is
+    initialised, ``train/mesh.py``: each rank holds the whole model, and
+    under ``--model_parallel`` the ranks of a model group decode the same
+    rows); no train loaders and no optimizer (the reference test drivers
+    touch only the eval split, AiR/test.py:60-104)."""
 
     def __init__(self, args, log_dir: str, device):
-        if args.mesh_size > 1 or args.model_parallel > 1 or \
-                (mesh.launched_world() or 1) > 1:
-            raise NotImplementedError(
-                "--mesh_size / --model_parallel > 1, or a torchrun launch: "
-                "evaluation over ranks is not ported (ROADMAP A13c); "
-                "cli/test.py evaluates on one card")
         self.args = args
         self.task = args.task
         self.grid = grid_spec(args)
         self.device = torch.device(device)
-        self.logger = Logger(join(log_dir, "log_test.txt"),
-                             level=task_log_level(args.task))
+        self.mesh = mesh.current(self.device)
+        self.logger = run_logger(self.mesh, join(log_dir, "log_test.txt"),
+                                 level=task_log_level(args.task))
         if trained_task(log_dir, args.task) == "joint":
             self.logger.info("Evaluating the %s head of a joint checkpoint",
                              self.task)
@@ -432,21 +486,24 @@ class Evaluator(EvalCore):
         self.generator = predictor.generator
 
 
-def train_loaders(args, task: str, cfg: DataConfig, m: mesh.Mesh):
-    """The supervised and SCST train loaders of ``task`` (this rank's
-    slice of each global batch) and, on rank 0, its validation loader
-    (None elsewhere)."""
+def rank_slice() -> dict:
+    """The ``Loader`` arguments of this rank's slice of each global batch:
+    its data rank's (the ranks of a model group load the same rows)."""
+    return dict(process_index=mesh.data_index(),
+                process_count=mesh.data_size())
+
+
+def train_loaders(args, task: str, cfg: DataConfig):
+    """The supervised, SCST and validation loaders of ``task``, each
+    loading this rank's slice of every global batch."""
     sup = Loader(SupervisedDataset(task, cfg, split="train"),
                  batch_size=args.batch, shuffle=True, seed=args.seed,
-                 drop_last=True, process_index=m.rank,
-                 process_count=m.world)
+                 drop_last=True, **rank_slice())
     rl = Loader(EvaluationDataset(task, cfg, split="train"),
                 batch_size=max(args.batch // 4, 1), shuffle=True,
-                seed=args.seed + 1, drop_last=True, process_index=m.rank,
-                process_count=m.world)
-    val = (Loader(EvaluationDataset(task, cfg, split="validation"),
-                  batch_size=args.batch, shuffle=False)
-           if m.is_primary else None)
+                seed=args.seed + 1, drop_last=True, **rank_slice())
+    val = Loader(EvaluationDataset(task, cfg, split="validation"),
+                 batch_size=args.batch, shuffle=False, **rank_slice())
     return sup, rl, val
 
 
@@ -485,16 +542,18 @@ class RunFiles:
                 best_metric=self.record_manager.get_best_metric())
 
     def end_epoch(self, epoch: int, metric: float, iteration: int,
-                  model_state: dict) -> None:
+                  model_state: dict | None) -> None:
         """Rank 0 writes the checkpoint triad of an epoch (the model in
-        its reference layout, the Adam state_dict), the record and, at
-        epoch ``start_rl_epoch - 1``, the ``_supervised_save`` copy; then
-        every rank takes rank 0's generator state and meets at a
-        barrier."""
+        its reference layout, ``model_state``, the Adam state_dict, each
+        whole under TP), the record and, at epoch ``start_rl_epoch - 1``,
+        the ``_supervised_save`` copy; then every rank meets at a
+        barrier.  The ranks' generators need no broadcast: every rank
+        draws the same shapes (the global batch's noise) in the same
+        order, in the steps and in the validations."""
         args = self.args
+        opt_state = tp_step.full_optimizer_state(self.state.optimizer)
         if self.mesh.is_primary:
-            self.checkpoint_manager.step(metric, model_state,
-                                         self.state.optimizer.state_dict())
+            self.checkpoint_manager.step(metric, model_state, opt_state)
             self.record_manager.save(
                 epoch, iteration, self.checkpoint_manager.get_best_metric())
             if args.supervised_save and epoch == args.start_rl_epoch - 1:
@@ -502,7 +561,6 @@ class RunFiles:
                 if os.path.exists(dst):
                     shutil.rmtree(dst)
                 shutil.copytree(self.log_dir, dst)
-        mesh.broadcast_generator(self.generator)
         mesh.barrier()
 
     def close_run(self):
@@ -517,7 +575,7 @@ class RunFiles:
 
 class Trainer(RunFiles, EvalCore):
     """The training run of ``cli/train.py`` on ``device`` (the card unless
-    the caller asks for the CPU), one rank of a data-parallel run when a
+    the caller asks for the CPU), one rank of a data x model mesh when a
     process group is initialised (``train/mesh.py``)."""
 
     def __init__(self, args, device="cuda"):
@@ -536,7 +594,7 @@ class Trainer(RunFiles, EvalCore):
 
         # ---------------- data ----------------
         self.train_loader, self.train_rl_loader, self.validation_loader = \
-            train_loaders(args, self.task, data_config(args), self.mesh)
+            train_loaders(args, self.task, data_config(args))
 
         # ---------------- model / optimizer ----------------
         self.model = model_from_flags(args)
@@ -555,7 +613,7 @@ class Trainer(RunFiles, EvalCore):
         # the saved moments, while the lr comes from this run's flags
         # (the saved param_groups hold the old schedule's lr, which
         # differs when --epoch changes)
-        self.state = steps.TrainState.create(
+        self.state = tp_step.train_state_class().create(
             self.model, args, len(self.train_loader),
             len(self.train_rl_loader), step=step, device=self.device,
             opt_state=opt_state)
@@ -672,8 +730,8 @@ class Trainer(RunFiles, EvalCore):
     # ------------------------------------------------------------------
     def validation(self, iteration: int):
         """The validation split scored by the host suite."""
-        metrics, stds = self.evaluate(self.validation_loader, False,
-                                      iteration)
+        metrics, stds, _ = self.evaluate(self.validation_loader, False,
+                                         iteration)
         self.logger.info(f"Evaluation metrics after iteration {iteration}:")
         log_metric_tree(self.logger, metrics, stds, self.writer, iteration)
         return metrics
@@ -681,8 +739,8 @@ class Trainer(RunFiles, EvalCore):
     def validation_device(self, iteration: int):
         """The validation split with every pairwise metric on the device
         (``metrics/device_eval.py``); the host suite's aggregation."""
-        metrics, stds = self.evaluate(self.validation_loader, True,
-                                      iteration)
+        metrics, stds, _ = self.evaluate(self.validation_loader, True,
+                                         iteration)
         self.logger.info(f"Evaluation metrics (device sweep) after "
                          f"iteration {iteration}:")
         log_metric_tree(self.logger, metrics, stds, self.writer, iteration)
@@ -701,24 +759,22 @@ class Trainer(RunFiles, EvalCore):
         start_epoch = self.record_manager.get_epoch()
         iteration = self.record_manager.get_iteration()
 
-        primary = self.mesh.is_primary
-        if args.resume_dir == "" and primary:
+        if args.resume_dir == "":
             self.human_baseline()
 
         for epoch in range(start_epoch + 1, args.epoch):
             iteration = self.train_epoch(iteration, epoch)
-            cur_metric, model_state = None, None
-            if primary:
-                cur_metrics = (self.validation_device(iteration)
-                               if args.device_eval
-                               else self.validation(iteration))
-                cur_metric = self.selection_metric(cur_metrics)
-                self.writer.add_scalar("current metric", cur_metric,
-                                       iteration)
-                self.logger.info(f"{'current metric':10}: {cur_metric:.4f}")
-                model_state = to_reference_state_dict(
-                    self.model.state_dict(), self.task, self.model.map_h,
-                    self.model.map_w)
+            # every rank validates its rows and takes rank 0's metrics
+            cur_metrics = (self.validation_device(iteration)
+                           if args.device_eval
+                           else self.validation(iteration))
+            cur_metric = self.selection_metric(cur_metrics)
+            self.writer.add_scalar("current metric", cur_metric, iteration)
+            self.logger.info(f"{'current metric':10}: {cur_metric:.4f}")
+            state = tp_step.full_state_dict(self.model)
+            model_state = (to_reference_state_dict(
+                state, self.task, self.model.map_h, self.model.map_w)
+                if self.mesh.is_primary else None)
             self.end_epoch(epoch, cur_metric, iteration, model_state)
         return self.close_run()
 

@@ -30,7 +30,8 @@ def test_port_imports_without_jax():
     assert {"scanpaths_tpu_torch.ops.nw", "scanpaths_tpu_torch.cli.train",
             "scanpaths_tpu_torch.utils.checkpointing",
             "scanpaths_tpu_torch.native",
-            "scanpaths_tpu_torch.train.mesh"} <= set(mods)
+            "scanpaths_tpu_torch.train.mesh",
+            "scanpaths_tpu_torch.train.tp_step"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['scanpaths_tpu'] = None\n"

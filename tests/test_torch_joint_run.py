@@ -184,7 +184,8 @@ def _patched_port(chain, params, stats):
         model.load_state_dict(port.joint_from_jax_params(params, stats, MH,
                                                          MW))
 
-    def sample(self, out, repeat_num, stream):
+    def sample(self, out, repeat_num, stream, sliced=False):
+        assert not sliced           # one process: every batch whole
         pre = f"{stream}_" if stream else ""
         probs, mu = out[pre + "all_actions_prob"], out[pre + "log_normal_mu"]
         g, z = _jax_draws(chain.next(), repeat_num, tuple(probs.shape),

@@ -750,10 +750,6 @@ def test_helpers_are_the_identity_without_a_group():
     assert mesh.all_reduce_with_grad(x) is x
     assert mesh.slice_rows(x, 0) is x
     assert torch.equal(mesh.global_mean(x), x.mean())
-    gen = torch.Generator().manual_seed(3)
-    state = gen.get_state()
-    mesh.broadcast_generator(gen)
-    assert torch.equal(gen.get_state(), state)
     assert mesh.broadcast_str("log_1") == "log_1"
     m = mesh.current("cpu")
     assert (m.rank, m.world, m.backend, m.is_primary) == (0, 1, None, True)

@@ -181,8 +181,8 @@ def _patched_port(chain, params, stats):
         model.load_state_dict(port.from_jax_params(params, stats, "osie",
                                                    MH, MW))
 
-    def sample(self, out, repeat_num, stream):
-        assert stream is None
+    def sample(self, out, repeat_num, stream, sliced=False):
+        assert stream is None and not sliced   # one process
         probs, mu = out["all_actions_prob"], out["log_normal_mu"]
         g, z = _jax_draws(chain.next(), repeat_num, tuple(probs.shape),
                           tuple(mu.shape))
@@ -524,7 +524,10 @@ def test_backbone_warm_start(synth_root, tmp_path):
                  "launch it under torchrun", id="flags0-A13"),
     pytest.param(("--mesh_size", "2"), ValueError,
                  "launch it under torchrun", id="flags1-A13"),
-    pytest.param(("--model_parallel", "2"), NotImplementedError, "A13b",
+    # a model-parallel factor must divide the ranks of the launch (one
+    # here)
+    pytest.param(("--model_parallel", "3"), ValueError,
+                 "--model_parallel 3 does not divide the 1 rank",
                  id="flags2-A13"),
     pytest.param(("--ckpt_backend", "orbax"), NotImplementedError, "A17",
                  id="flags3-A17"),
@@ -543,12 +546,13 @@ def test_refused_flags(flags, error, item, synth_root, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--mesh_size", "--model_parallel"])
 def test_test_driver_refuses_ranks(flag, synth_root, tmp_path):
-    """cli/test.py evaluates on one card: a mesh or TP factor above 1
-    raises, naming the ROADMAP item of evaluation over ranks, before it
-    reads or writes anything."""
+    """cli/test.py evaluates over the ranks torchrun launches: outside
+    torchrun a mesh or TP factor of 2 raises with the torchrun command
+    line of cli.test, before it reads or writes anything."""
     argv = _argv(synth_root, str(tmp_path), (
         "--evaluation_dir", str(tmp_path), flag, "2", "--device", "cpu"))
-    with pytest.raises(NotImplementedError, match="A13c"):
+    with pytest.raises(ValueError, match=r"under torchrun: torchrun "
+                       r"--nproc_per_node 2 -m scanpaths_tpu_torch\.cli\.test"):
         tcli_test.main(argv)
     assert not os.listdir(tmp_path)
 
