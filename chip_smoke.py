@@ -72,7 +72,14 @@ Phases, each reporting on its own lines and with its wall time:
    the same step on the CPU (loss and gradient norm, rtol 1e-3).  Prints
    the step times, images/s, the reward grids' share of the SCST step
    and the NW time inside it, NW ms a call at the reward's shapes, and
-   the peak memory allocated per phase;
+   the peak memory allocated per phase.  For OSIE also: two supervised
+   steps from step 2 from one state with float32 and with bfloat16 Adam
+   first moments (--bf16_moments): the first loss equal, every stored
+   first moment bfloat16, the parameters within 5% of the largest update
+   and two float32 ulps (BF16_MOMENT_GAP), both peaks printed; and three SCST and three
+   supervised steps with an async checkpoint write of the state in
+   flight against none (the ms step() blocked, the write's ms, the
+   steps' ms);
 8. the trainer, for each task: writes a train split of 8 images and a
    validation split of 16 others (phase 3's frames and subject counts,
    seed 0) and runs scanpaths_tpu_torch.cli.train at full width
@@ -94,7 +101,13 @@ Phases, each reporting on its own lines and with its wall time:
    steps are held to the --epoch 3 schedule).  Prints per epoch the steps/s and images/s, the wait for host
    batches, the device's idle share over the epoch's last 2 steps
    (torch.profiler) and the peak memory; per validation its wall and the
-   sweep's share; per checkpoint write its ms and MB;
+   sweep's share; per checkpoint write its ms and MB.  OSIE's and COCO's
+   runs write their checkpoints on the writer thread (--ckpt_backend
+   orbax; AiR's synchronously): per write the ms step() blocked and the
+   ms and MB of each file written on the thread, and after the run the
+   final checkpoint.pth and checkpoint_best.pth equal to a synchronous
+   write of the same states; OSIE's resume reads the async-written
+   checkpoint.pth;
 9. the joint trainer: writes a joint data root in
    tools/make_synth_data.py's layout (8 train and 8 validation images
    a task, phase 3's frames and subject counts, seed 0) and runs
@@ -183,8 +196,16 @@ Phases, each reporting on its own lines and with its wall time:
    DP_RUN_DRIFT_RTOL), each rank's validation launches (both validate
    their rows: 16 cell and 3 stage a forward), every SCST NW call exact
    on both ranks; prints the SCST scalars beside phase 8's (not
-   asserted);
-12. prints the kernels' JSON line (phase 11's workers' launches added),
+   asserted); (b) runs with phase 8's OSIE flags, so rank 0 writes its
+   checkpoints on the writer thread;
+12. the measuring tools (scanpaths_tpu_torch/tools/, in this process, at
+   full width): bench_steps' nw (the kernel against its plain version,
+   max abs err 0), sup and rl sections, bench_serving live at batches 1
+   and 8 and on phase 10's float32 greedy OSIE bundle, profile_bench at
+   batch 8 in bfloat16 and float32, and bench_train sup 16 with and
+   without --bf16_moments; each JSON line printed and finite, every MFU
+   under 1.0, each kernel launched;
+13. prints the kernels' JSON line (phase 11's workers' launches added),
    then {"ok": true, "device": ...} as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -1600,6 +1621,12 @@ def run_train_slice(cell, block, nw, argv):
     if got != want:
         raise AssertionError(f"{task} training: launches {got}, expected "
                              f"{want}")
+    if task == "osie":
+        with tempfile.TemporaryDirectory() as tmp:
+            measure_write_overlap(
+                state, db, [steps.device_batch(b, "cuda", for_rl=True)
+                            for b in rl_batches], rl_cfg, gen,
+                args.lambda_1, tmp)
     # where a step's time goes (each after one more warm step)
     profile_call(lambda: steps.supervised_step(state, db, args.lambda_1),
                  f"{task} supervised step, batch {args.batch}, float32")
@@ -1609,6 +1636,8 @@ def run_train_slice(cell, block, nw, argv):
                  "float32")
     del state
     torch.cuda.empty_cache()
+    if task == "osie":
+        check_bf16_moments(args, db, len(sup_loader), len(rl_loader))
 
     steady_rl = sum(rl_ms[1:]) / (len(rl_ms) - 1)
     print(f"[train] {task} SCST step, batch {n_rl} x "
@@ -1657,6 +1686,192 @@ def run_train_slice(cell, block, nw, argv):
           f"exactly (max abs err 0, NaN in the same places); NW "
           f"{per_step:.4f} ms a step at these shapes", flush=True)
     return got, per_step, sup_batch, steady
+
+
+# phase 7's bfloat16-moment check: the second moments preset (the update
+# then smooth in the gradient), and the parameter gap the two runs may
+# show: a share of the largest update of the float32 run, plus two
+# float32 ulps of the parameter.  The rounded moment itself moves a
+# second-step update by under 0.2% of the largest; the second step's
+# gradient also differs between the runs (the first updates round to
+# the parameters' last bits apart, and cuDNN's backward is not
+# deterministic), which moved one parameter by 1.4% of the largest
+# update on an H100.  An update that ignored or misscaled the stored
+# moment would move the second step by tens of percent.
+BF16_MOMENT_NU = 1e-4
+BF16_MOMENT_GAP = 5e-2
+F32_ULP = 2.0 ** -23
+
+
+def _to_host(obj):
+    """A plain CPU copy of nested dicts, lists and tuples of tensors."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return type(obj)((k, _to_host(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _same(a, b, label):
+    """Nested tensors equal in dtype and value."""
+    if torch.is_tensor(a):
+        if not (torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a, b)):
+            raise AssertionError(f"{label}: differs")
+    elif isinstance(a, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"{label}: keys differ")
+        for k in a:
+            _same(a[k], b[k], f"{label}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{label}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{label}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{label}: {a} != {b}")
+
+
+def check_bf16_moments(args, db, steps_sup, steps_rl):
+    """Phase 7, OSIE: the same two supervised steps from optimizer step 2
+    from one state (_train_model's, Adam's second moments preset to
+    BF16_MOMENT_NU), with torch Adam's float32 first moment and with
+    --bf16_moments (the port's Adam): the first step's loss equal, every
+    stored first moment bfloat16, the parameters within BF16_MOMENT_GAP
+    of the float32 run's largest update and two float32 ulps of the
+    parameter; prints both runs' step ms and
+    peak memory allocated (the state held through the steps)."""
+    import copy
+
+    from scanpaths_tpu_torch.train import steps
+    base = _train_model(args)
+    start = [p.detach().clone() for p in base.parameters()]
+    runs = {}
+    for bf16 in (False, True):
+        flags = copy.copy(args)
+        flags.bf16_moments = bf16
+        model = copy.deepcopy(base)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = steps.TrainState.create(model, flags, steps_sup, steps_rl,
+                                        step=2, device="cuda")
+        for st in state.optimizer.state.values():
+            st["exp_avg_sq"].fill_(BF16_MOMENT_NU)
+        ms, losses = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = _finite(args.task, "supervised step",
+                        steps.supervised_step(state, db, args.lambda_1))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(m["loss"])
+        dtypes = {str(st["exp_avg"].dtype)
+                  for st in state.optimizer.state.values()}
+        runs[bf16] = dict(ms=ms, losses=losses, dtypes=dtypes,
+                          peak=torch.cuda.max_memory_allocated(),
+                          params=[p.detach().cpu() for p in
+                                  model.parameters()])
+        del state, model
+    f32, b16 = runs[False], runs[True]
+    if b16["dtypes"] != {"torch.bfloat16"} or \
+            f32["dtypes"] != {"torch.float32"}:
+        raise AssertionError(f"first moments {f32['dtypes']}, "
+                             f"{b16['dtypes']}")
+    first_gap = abs(b16["losses"][0] - f32["losses"][0])
+    if not first_gap <= 1e-6 * abs(f32["losses"][0]):
+        raise AssertionError(f"bf16 moments: first loss {b16['losses'][0]} "
+                             f"against {f32['losses'][0]}")
+    update = max(float((p - q).abs().max())
+                 for p, q in zip(f32["params"], start))
+    gap = max(float((p - q).abs().max())
+              for p, q in zip(b16["params"], f32["params"]))
+    excess = max(float(((p - q).abs() - 2 * F32_ULP * q.abs()).max())
+                 for p, q in zip(b16["params"], f32["params"]))
+    if not excess <= BF16_MOMENT_GAP * update:
+        raise AssertionError(f"bf16 moments: parameters {gap:.3g} from the "
+                             f"float32 run's ({excess:.3g} over two ulps), "
+                             f"largest update {update:.3g}")
+    n = sum(p.numel() for p in start)
+    print(f"[train] {args.task} --bf16_moments, two supervised steps from "
+          f"step 2 from one state (second moments preset to "
+          f"{BF16_MOMENT_NU}): loss {', '.join(f'{v:.6f}' for v in b16['losses'])}"
+          f" against float32 moments {', '.join(f'{v:.6f}' for v in f32['losses'])}"
+          f" (first step {'bit-equal' if first_gap == 0 else f'gap {first_gap:.3g}'});"
+          f" every stored first moment bfloat16; largest parameter gap "
+          f"{gap:.3g}, {excess:.3g} beyond two float32 ulps of the "
+          f"parameter ({100 * max(excess, 0.0) / update:.3f}% of the largest "
+          f"update {update:.3g}, bar {100 * BF16_MOMENT_GAP:.0f}%); step ms "
+          f"{', '.join(f'{v:.1f}' for v in b16['ms'])} against "
+          f"{', '.join(f'{v:.1f}' for v in f32['ms'])}; peak allocated "
+          f"{_mib(b16['peak']):.1f} MiB against {_mib(f32['peak']):.1f} MiB "
+          f"({(f32['peak'] - b16['peak']) / 1e6:.1f} MB less; half the "
+          f"first moment of {n} parameters: {2 * n / 1e6:.1f} MB)",
+          flush=True)
+
+
+def measure_write_overlap(state, db, rdbs, rl_cfg, gen, lambda_1, tmp):
+    """Phase 7, OSIE: what an async checkpoint write in flight costs the
+    steps it overlaps (its writer thread holds the GIL while it
+    pickles).  Three SCST and three supervised steps without a write,
+    then each kind again right after AsyncCheckpointManager.step of the
+    state (the trainer's reference-layout model and Adam state): prints
+    the ms step() blocked, the write's ms, and the mean ms of the steps
+    that ran while the write was in flight against the mean without."""
+    from scanpaths_tpu_torch.models.port import to_reference_state_dict
+    from scanpaths_tpu_torch.train import steps, tp_step
+    from scanpaths_tpu_torch.utils import checkpointing as ck
+
+    def take(kind, n=3):
+        spans = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "SCST":
+                steps.rl_step(state, rdbs[i % len(rdbs)], rl_cfg,
+                              generator=gen)
+            else:
+                steps.supervised_step(state, db, lambda_1)
+            torch.cuda.synchronize()
+            spans.append((t0, time.perf_counter()))
+        return spans
+
+    def mean_ms(spans):
+        return 1e3 * sum(b - a for a, b in spans) / max(len(spans), 1)
+
+    writes = []
+    real_save = ck.save
+
+    def save(path, obj):
+        t0 = time.perf_counter()
+        real_save(path, obj)
+        writes.append((t0, time.perf_counter()))
+    mgr = ck.AsyncCheckpointManager(os.path.join(tmp, "overlap"))
+    with mock.patch.object(ck, "save", save):
+        for kind in ("SCST", "supervised"):
+            alone = take(kind)
+            model = state.model
+            t0 = time.perf_counter()
+            mgr.step(0.5, to_reference_state_dict(
+                tp_step.full_state_dict(model), model.task, model.map_h,
+                model.map_w), tp_step.full_optimizer_state(state.optimizer))
+            blocked = 1e3 * (time.perf_counter() - t0)
+            spans = take(kind)
+            mgr.wait()
+            start, end = writes[0][0], writes[-1][1]
+            during = [sp for sp in spans if sp[0] < end]
+            print(f"[train] osie async checkpoint write during {kind} steps: "
+                  f"step() blocked {blocked:.1f} ms (the host copy), the "
+                  f"writes (checkpoint.pth, checkpoint_best.pth) "
+                  f"{1e3 * (end - start):.1f} ms on the writer thread; "
+                  f"{len(during)} of {len(spans)} steps started while they "
+                  f"were in flight: {mean_ms(during):.1f} ms a step against "
+                  f"{mean_ms(alone):.1f} ms without a write "
+                  f"({100 * (mean_ms(during) / mean_ms(alone) - 1):+.1f}%)",
+                  flush=True)
+            writes.clear()
+    mgr.close()
 
 
 def check_train_parity(argv, batch):
@@ -1728,7 +1943,9 @@ def write_trainer_split(tmp, task):
                   "w") as f:
             json.dump(dets + val_dets, f)
     maps = {"air": ["--att_dir", att_dir], "coco": ["--detector_dir", att_dir]}
+    backend = "msgpack" if task == "air" else "orbax"
     return ["--task", task, "--img_dir", img_dir, "--fix_dir", fix_dir,
+            "--ckpt_backend", backend,
             "--log_root", os.path.join(root, "logs"),
             "--batch", str(TEST_BATCH), "--eval_repeat_num", str(REPEATS),
             "--seed", "0", "--epoch", "2", "--start_rl_epoch", "1",
@@ -1773,6 +1990,8 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck, trace=True):
             ("train_epoch", "_maybe_profile", "validation_device",
              "human_baseline")}
     real_init, real_step = tr.init_weights, ck.CheckpointManager.step
+    real_async = ck.AsyncCheckpointManager.step
+    async_steps = []
     real_add = device_eval.DeviceSweep.add_batch
     real_add_air = device_eval.DeviceSweep.add_batch_air
     sweep = [0.0]
@@ -1868,6 +2087,17 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck, trace=True):
             kind="checkpoint", ms=ms, mb=os.path.getsize(self.path) / 1e6,
             best_mb=os.path.getsize(self.best_path) / 1e6
             if wrote_best else None))
+    def async_step(self, metric, model_state, opt_state=None):
+        torch.cuda.synchronize()
+        state = _to_host({"model": model_state, "optimizer": opt_state})
+        best = self.get_best_metric()
+        t0 = time.perf_counter()
+        real_async(self, metric, model_state, opt_state)
+        ms = 1e3 * (time.perf_counter() - t0)
+        wrote_best = not best or (metric >= best)
+        records.append(dict(kind="checkpoint", ms=ms, writes=[],
+                            n_writes=1 + wrote_best))
+        async_steps.append((records[-1], self, state, wrote_best))
     with mock.patch.object(tr.Trainer, "train_epoch", train_epoch), \
             mock.patch.object(tr.Trainer, "_maybe_profile", maybe_profile), \
             mock.patch.object(tr.Trainer, "validation_device",
@@ -1875,11 +2105,44 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck, trace=True):
             mock.patch.object(tr.Trainer, "human_baseline", human_baseline), \
             mock.patch.object(tr, "init_weights", init_weights), \
             mock.patch.object(ck.CheckpointManager, "step", checkpoint_step), \
+            mock.patch.object(ck.AsyncCheckpointManager, "step",
+                              async_step), \
             mock.patch.object(device_eval.DeviceSweep, "add_batch",
                               timed(real_add)), \
             mock.patch.object(device_eval.DeviceSweep, "add_batch_air",
                               timed(real_add_air)):
         yield records
+    check_async_writes(async_steps, ck)
+
+
+def check_async_writes(async_steps, ck):
+    """After an async run (its manager closed): each step's record takes
+    its writes (file, ms, MB) from the manager, and the final
+    checkpoint.pth and checkpoint_best.pth load equal to a synchronous
+    write (checkpointing.save) of the states those steps were given."""
+    done = {}
+    for rec, mgr, _, _ in async_steps:
+        i = done.get(id(mgr), 0)
+        rec["writes"] = [[name, ms, size / 1e6]
+                         for name, ms, size in
+                         mgr.writes[i:i + rec["n_writes"]]]
+        done[id(mgr)] = i + rec["n_writes"]
+        if len(rec["writes"]) != rec["n_writes"]:
+            raise AssertionError(f"async checkpoint: {rec['writes']}")
+    if not async_steps:
+        return
+    mgr = async_steps[-1][1]
+    last = async_steps[-1][2]
+    best = [st for _, _, st, wrote in async_steps if wrote]
+    with tempfile.TemporaryDirectory() as d:
+        pairs = [(mgr.path, os.path.join(d, "sync.pth"), last)]
+        if best:
+            pairs.append((mgr.best_path, os.path.join(d, "sync_best.pth"),
+                          {"model": best[-1]["model"]}))
+        for path, sync_path, state in pairs:
+            ck.save(sync_path, state)
+            _same(ck.load(path), ck.load(sync_path),
+                  os.path.basename(path))
 
 
 def _run_dir(log_root):
@@ -1980,6 +2243,16 @@ def print_trainer_records(task, label, records, rollouts, nw):
         elif rec["kind"] == "human":
             print(f"[trainer] {task} {label} human baseline (device): "
                   f"{rec['wall']:.2f} s wall; launches {n}", flush=True)
+        elif "writes" in rec:
+            print(f"[trainer] {task} {label} checkpoint write, async "
+                  f"(--ckpt_backend orbax): step() blocked {rec['ms']:.1f} "
+                  f"ms; on the writer thread "
+                  + ", ".join(f"{name} {ms:.1f} ms ({mb:.1f} MB)"
+                              for name, ms, mb in rec["writes"])
+                  + ("" if rec["n_writes"] == 2
+                     else ", checkpoint_best.pth not rewritten")
+                  + "; the final files equal a synchronous write of the "
+                  "same states", flush=True)
         else:
             best = (f", checkpoint_best.pth {rec['best_mb']:.1f} MB"
                     if rec["best_mb"] is not None else
@@ -2172,7 +2445,8 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
         old_lr = args.lr * lr_multiplier(
             first, sup_steps, rl_steps, args.warmup_epoch,
             args.start_rl_epoch, args.epoch, args.rl_lr_initial_decay)
-        print(f"[trainer] osie resume --epoch 3: went on from iteration "
+        print(f"[trainer] osie resume --epoch 3 from the checkpoint.pth "
+              f"the async writer wrote: went on from iteration "
               f"{record['iteration']} and Adam step {step0} to iteration "
               f"{record2['iteration']} and step {step1}; every learning_rate "
               f"scalar (the lr the optimizer applied) written once, equal "
@@ -3799,6 +4073,53 @@ def run_dp_slice(tmp, test_argv, phase7_ms, phase8, smi):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the measuring tools
+# ---------------------------------------------------------------------------
+
+TOOL_ITERS = 5
+
+
+def run_tools_slice(cell, block, nw, tmp):
+    """Phase 12: the port's measuring tools (scanpaths_tpu_torch/tools/),
+    called in this process at full width: bench_steps' nw, sup and rl
+    sections, bench_serving live at batches 1 and 8 and on phase 10's
+    float32 greedy OSIE bundle, profile_bench at batch 8 in bfloat16 and
+    float32, and bench_train sup 16 with and without --bf16_moments.
+    Each prints its JSON lines (finite, every MFU under 1.0, or the tool
+    raises); the NW kernel's max abs error against its plain version
+    must be 0.  Returns the kernels' launches of the phase."""
+    import types
+
+    from scanpaths_tpu_torch.tools import (bench_serving, bench_steps,
+                                          bench_train, common,
+                                          profile_bench)
+    geo = dict(common.FULL)
+    before = _launches(cell, block, nw)
+    recs = bench_steps.bench_nw("cuda", iters=TOOL_ITERS)
+    if recs[-1]["value"] != 0.0 or not recs[-1]["nan_in_same_places"]:
+        raise AssertionError(f"bench_steps nw: {recs[-1]}")
+    bench_steps.bench_sup("cuda", geo, iters=TOOL_ITERS)
+    bench_steps.bench_rl("cuda", geo, iters=TOOL_ITERS)
+    torch.cuda.empty_cache()
+    bench_serving.run("cuda", geo, torch.float32, (1, 8), iters=10)
+    bench_serving.run("cuda", bundle=os.path.join(tmp, "bundles", "osie"),
+                      iters=10)
+    for dtype in (torch.bfloat16, torch.float32):
+        profile_bench.run("cuda", geo, dtype, 8, iters=10)
+    torch.cuda.empty_cache()
+    for bf16 in (False, True):
+        flags = types.SimpleNamespace(device="cuda", dtype="bfloat16",
+                                      bf16_moments=bf16, iters=TOOL_ITERS)
+        bench_train.bench_sup(flags, geo, 16)
+        torch.cuda.empty_cache()
+    got = _minus(_launches(cell, block, nw), before)
+    if not all(got.values()):
+        raise AssertionError(f"tools: launches {got}")
+    print(f"[tools] launches {got}", flush=True)
+    return got
+
+
 def print_ptxas(log):
     """One line per compiled kernel from ptxas -v: its name with template
     arguments, registers, spills and shared memory."""
@@ -3928,6 +4249,10 @@ def main():
         t0 = time.perf_counter()
         add(run_dp_slice(tmp, test_argv, phase7_ms["osie"], phase8, smi))
         _phase("data parallel", t0)
+
+        t0 = time.perf_counter()
+        add(run_tools_slice(cell, block, nw, tmp))
+        _phase("tools", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),

@@ -11,8 +11,9 @@ the three task plugins, as the JAX trainer does:
   scalars.jsonl (and TensorBoard event files where
   ``torch.utils.tensorboard`` imports), checkpoints/{checkpoint.pth,
   checkpoint_best.pth} in the reference's layout
-  (``utils/checkpointing.py``), the ``<logdir>_supervised_save`` copy at
-  epoch ``start_rl_epoch - 1``;
+  (``utils/checkpointing.py``; ``--ckpt_backend orbax`` writes them on
+  a writer thread), the ``<logdir>_supervised_save`` copy at epoch
+  ``start_rl_epoch - 1`` (after the epoch's writes land);
 * the scalar tags are the JAX trainer's, which are the reference's
   TensorBoard tags;
 * model selection is the harmonic mean of the ScanMatch metrics (AiR:
@@ -42,8 +43,10 @@ aggregates and logs them, and every rank takes its metrics, so every
 rank selects alike.  Rank 0 alone writes the run (hparams.json,
 log_train.txt, the scalars, the record, the checkpoints, gathered whole
 under TP, the ``_supervised_save`` copy); its log dir name is broadcast.
-The ranks meet at a barrier after each checkpoint write; a resume
-restores rank 0's files on every rank.
+The ranks meet at a barrier after each checkpoint write (after its
+enqueue under ``--ckpt_backend orbax``; the writes land before the
+barrier of ``close_run``); a resume restores rank 0's files on every
+rank.
 """
 
 from __future__ import annotations
@@ -75,7 +78,8 @@ from ..models.scanpath_model import init_weights, model_from_flags
 from ..ops import sampling
 from ..ops.sampling import to_fix_vectors
 from ..serve.predictor import Predictor, eval_forward, trained_task
-from ..utils.checkpointing import CheckpointManager, restore_checkpoint
+from ..utils.checkpointing import (make_checkpoint_manager,
+                                   restore_checkpoint)
 from ..utils.logger import Logger, task_log_level
 from ..utils.recording import RecordManager
 from . import mesh, steps, tp_step
@@ -229,24 +233,13 @@ def log_metric_tree(logger, metrics, stds, writer=None, iteration: int = 0,
 
 
 def check_ported_flags(args) -> None:
-    """Raise for each flag whose feature the port does not have, naming
-    the ROADMAP item that ports it, and for a ``--mesh_size`` or
-    ``--model_parallel`` the launch does not give
+    """Raise for ``--stem_impl s2d``, which the port leaves out, and for
+    a ``--mesh_size`` or ``--model_parallel`` the launch does not give
     (``mesh.check_mesh_size``, ``mesh.check_model_parallel``)."""
-    refused = [
-        (args.ckpt_backend == "orbax",
-         "--ckpt_backend orbax: async checkpoint saves are not ported "
-         "(ROADMAP A17)"),
-        (args.bf16_moments,
-         "--bf16_moments: the bfloat16 Adam moment is not ported "
-         "(ROADMAP A18)"),
-        (args.stem_impl == "s2d",
-         "--stem_impl s2d: the space-to-depth stem is TPU machinery the "
-         "port leaves out (ROADMAP, North star)"),
-    ]
-    for bad, why in refused:
-        if bad:
-            raise NotImplementedError(why)
+    if args.stem_impl == "s2d":
+        raise NotImplementedError(
+            "--stem_impl s2d: the space-to-depth stem is TPU machinery the "
+            "port leaves out (ROADMAP, North star)")
     mesh.check_model_parallel(args.model_parallel,
                               mesh.check_mesh_size(args.mesh_size))
 
@@ -537,9 +530,10 @@ class RunFiles:
         elif primary:
             self.record_manager.init_record()
         if primary:
-            self.checkpoint_manager = CheckpointManager(
+            self.checkpoint_manager = make_checkpoint_manager(
                 self.checkpoints_dir, mode="max",
-                best_metric=self.record_manager.get_best_metric())
+                best_metric=self.record_manager.get_best_metric(),
+                backend=args.ckpt_backend)
 
     def end_epoch(self, epoch: int, metric: float, iteration: int,
                   model_state: dict | None) -> None:
@@ -557,6 +551,7 @@ class RunFiles:
             self.record_manager.save(
                 epoch, iteration, self.checkpoint_manager.get_best_metric())
             if args.supervised_save and epoch == args.start_rl_epoch - 1:
+                self.checkpoint_manager.wait()
                 dst = self.log_dir.rstrip("/") + "_supervised_save"
                 if os.path.exists(dst):
                     shutil.rmtree(dst)
@@ -564,9 +559,12 @@ class RunFiles:
         mesh.barrier()
 
     def close_run(self):
-        """Closes the writer; every rank returns the record's best
-        metric."""
+        """Closes the scalar writer and the checkpoint manager (its
+        writes land before the barrier); every rank returns the record's
+        best metric."""
         self.writer.close()
+        if self.checkpoint_manager is not None:
+            self.checkpoint_manager.close()
         mesh.barrier()
         if not self.mesh.is_primary:
             self.record_manager.load()

@@ -23,16 +23,19 @@ reference's.  The optimizer entry is the port's own torch Adam
 ``state_dict``, keyed by the index of the port's parameters (the fused
 ConvLSTM gate convs among them): only the port resumes from it.
 
-There is one backend: ``--ckpt_backend orbax`` (the JAX package's async
-saves, ROADMAP A17) is refused by the trainer
-(``train/trainer.py::check_ported_flags``).  A checkpoints directory
-that holds a JAX run's ``.msgpack`` or ``.orbax`` artifacts raises here:
-the port does not read flax msgpack.
+Two managers write these files: :class:`CheckpointManager` writes them
+synchronously, :class:`AsyncCheckpointManager` on a writer thread from a
+host copy of the state (``--ckpt_backend orbax``, the flag of the JAX
+package's async saves; :func:`make_checkpoint_manager` picks by the
+flag).  A checkpoints directory that holds a JAX run's ``.msgpack`` or
+``.orbax`` artifacts raises here: the port does not read flax msgpack.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
+import time
 from os.path import join
 from typing import Any
 
@@ -101,16 +104,131 @@ class CheckpointManager:
         reference's <=/>=; a falsy initial best adopts the first metric,
         reference checkpointing.py:83-84)."""
         save(self.path, {"model": model_state, "optimizer": opt_state})
+        if self._improves(metric):
+            save(self.best_path, {"model": model_state})
+
+    def _improves(self, metric: float) -> bool:
+        """Whether ``metric`` is a new best (then kept as the best)."""
         if not self._best_metric:
             self._best_metric = metric
         improved = (metric <= self._best_metric if self._mode == "min"
                     else metric >= self._best_metric)
         if improved:
             self._best_metric = metric
-            save(self.best_path, {"model": model_state})
+        return improved
 
     def get_best_metric(self):
         return self._best_metric
+
+    def wait(self):
+        """Writes are synchronous; nothing to wait for."""
+
+    def close(self):
+        """Nothing to release."""
+
+
+def host_copy(obj: Any) -> Any:
+    """``obj`` (nested dicts, lists and tuples) with every tensor copied
+    to the host: a card's tensors into pinned buffers by non-blocking
+    copies and one synchronize, a host tensor by a clone."""
+    on_card = False
+
+    def copy(x):
+        nonlocal on_card
+        if torch.is_tensor(x):
+            x = x.detach()
+            if x.device.type == "cpu":
+                return x.clone()
+            on_card = True
+            buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            return buf.copy_(x, non_blocking=True)
+        if isinstance(x, dict):
+            return type(x)((k, copy(v)) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        return x
+    out = copy(obj)
+    if on_card:
+        torch.cuda.synchronize()
+    return out
+
+
+class AsyncCheckpointManager(CheckpointManager):
+    """The triad of :class:`CheckpointManager` written on a writer
+    thread: ``step()`` returns once the state is copied to the host
+    (:func:`host_copy`), and the write overlaps the next steps.  It is
+    what ``--ckpt_backend orbax`` selects, so that one command line means
+    the same to both packages, but it writes the same ``checkpoint.pth``
+    and ``checkpoint_best.pth`` as the synchronous manager, not orbax
+    directories.
+
+    One write is in flight at a time: ``step()`` first waits for the
+    previous step's writes, then enqueues the rolling write and, if the
+    metric improved, the best write.  ``wait()`` returns when every write
+    is on disk under its final name; ``close()`` also stops the writer
+    (a second call does nothing).  An error of the writer is raised from
+    the next ``step``, ``wait`` or ``close``.  ``writes`` holds, per file
+    written, (its name, the ms the write took, its size in bytes)."""
+
+    def __init__(self, serialization_dir: str, mode: str = "max",
+                 best_metric=None, filename_prefix: str = "checkpoint"):
+        super().__init__(serialization_dir, mode, best_metric,
+                         filename_prefix)
+        self._writer = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="checkpoint-writer")
+        self._pending: list[concurrent.futures.Future] = []
+        self._closed = False
+        self.writes: list[tuple[str, float, int]] = []
+
+    def _write(self, path: str, obj: Any) -> None:
+        t0 = time.perf_counter()
+        save(path, obj)
+        self.writes.append((os.path.basename(path),
+                            1e3 * (time.perf_counter() - t0),
+                            os.path.getsize(path)))
+
+    def _submit(self, path: str, obj: Any) -> None:
+        self._pending.append(self._writer.submit(self._write, path, obj))
+
+    def step(self, metric: float, model_state: Any, opt_state: Any = None):
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointManager.step after close()")
+        self.wait()
+        state = host_copy({"model": model_state, "optimizer": opt_state})
+        self._submit(self.path, state)
+        if self._improves(metric):
+            self._submit(self.best_path, {"model": state["model"]})
+
+    def wait(self):
+        """Blocks until every enqueued write is on disk under its final
+        name; raises the first error of those writes."""
+        pending, self._pending = self._pending, []
+        errors = [f.exception() for f in pending]
+        for e in errors:
+            if e is not None:
+                raise e
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self.wait()
+        finally:
+            self._writer.shutdown(wait=True)
+
+
+def make_checkpoint_manager(serialization_dir: str, mode: str = "max",
+                            best_metric=None, backend: str = "msgpack"):
+    """The manager of ``--ckpt_backend``: ``msgpack`` (the default)
+    writes synchronously, ``orbax`` on a writer thread; both write the
+    reference-layout ``.pth`` triad."""
+    managers = {"msgpack": CheckpointManager,
+                "orbax": AsyncCheckpointManager}
+    if backend not in managers:
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    return managers[backend](serialization_dir, mode=mode,
+                             best_metric=best_metric)
 
 
 def restore_checkpoint(checkpoints_dir: str) -> dict:

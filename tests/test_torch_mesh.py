@@ -357,7 +357,8 @@ def case_run(tmp, kind):
             for p in state.model.parameters():
                 state.optimizer.state[p] = {
                     "step": torch.tensor(0.0),
-                    "exp_avg": torch.zeros_like(p),
+                    "exp_avg": torch.zeros_like(p, dtype=getattr(
+                        state.optimizer, "mu_dtype", None)),
                     "exp_avg_sq": torch.full_like(p, NU)}
         return state
     # scalars.jsonl alone: importing TensorBoard (it pulls in TensorFlow)

@@ -28,6 +28,10 @@ process computes the JAX side meanwhile and compares.  The cases:
 * the global-norm clip binding (clip 1e-3) on the 1 x 2 mesh against
   world 1, in float64: the norm at rtol 1e-12, the parameters and Adam's
   moments as above;
+* ``--bf16_moments`` on the 1 x 2 mesh against world 1, in float64: two
+  supervised steps, the first moments bfloat16 on both sides (gloo
+  all-reduces the bfloat16 slices to gather them), the metrics, moments
+  and parameters as above;
 * a TP eval forward (``tp_step.gathered``) on the 1 x 2 mesh against the
   JAX package's row-parallel eval forward on a 2 x 2 mesh, at
   ``tests/test_mesh.py``'s bar for it (rtol 1e-4 / atol 1e-5); without
@@ -36,7 +40,8 @@ process computes the JAX side meanwhile and compares.  The cases:
   world-1 model, and loaded back under TP (the parameters and moments
   sliced as they were);
 * ``cli.train --model_parallel 2`` (OSIE and ``--task joint``, each with
-  a resume) on the 1 x 2 mesh against world 1, as
+  a resume, with ``--ckpt_backend orbax --bf16_moments true`` on both
+  sides) on the 1 x 2 mesh against world 1, as
   ``test_torch_mesh.test_run_world2_matches_world1``;
 * the refusal of ``--model_parallel 3`` on world 2.
 """
@@ -164,12 +169,13 @@ def _jax_steps(d, out):
         out[f"{kind}_state"] = _full_state(model)
 
 
-def case_task_steps(tmp, task, clip=None):
+def case_task_steps(tmp, task, clip=None, bf16_moments=False):
     """test_torch_mesh's float64 step case on this mesh's state class:
     two supervised steps, then two SCST steps (AiR with its CD term), on
     this data rank's rows; every metric, Adam's first moment after each
-    kind of step, the final state, all whole.  With ``clip``, one
-    supervised step at that clip."""
+    kind of step (and its dtype), the final state, all whole.  With
+    ``clip``, one supervised step at that clip; with ``bf16_moments``,
+    the two supervised steps alone, the first moment in bfloat16."""
     model = ScanpathModel(task, backbone_layers=(1, 1, 1, 1),
                           map_h=tmesh.MH, map_w=tmesh.MW, seq_len=tmesh.T,
                           embed=64, dtype=torch.float64)
@@ -179,7 +185,8 @@ def case_task_steps(tmp, task, clip=None):
         model.head.drt_layer_2.weight.mul_(0.01)
     args = types.SimpleNamespace(**{**vars(tmesh.ARGS),
                                     **({} if clip is None
-                                       else {"clip": clip})})
+                                       else {"clip": clip}),
+                                    "bf16_moments": bf16_moments})
     state = tp_step.train_state_class().create(model, args, 4, 4,
                                                step=tmesh.START,
                                                device="cpu")
@@ -199,7 +206,9 @@ def case_task_steps(tmp, task, clip=None):
         out["metrics"].append(tmesh._floats(steps.supervised_step(state, db,
                                                                   1.0)))
     out["sup_moments"] = _full_moments(state, model)
-    if clip is None:
+    out["moment_dtype"] = str(tp_step.full_optimizer_state(
+        state.optimizer)["state"][0]["exp_avg"].dtype)
+    if clip is None and not bf16_moments:
         for _, rl in batches:
             db = steps.device_batch({k: _rows(v) for k, v in rl.items()},
                                     "cpu", for_rl=True)
@@ -271,15 +280,26 @@ def case_checkpoint(tmp):
 
 
 def case_run(tmp, kind):
-    """test_torch_mesh's whole run and resume, under --model_parallel 2
-    when a process group holds two ranks."""
+    """test_torch_mesh's whole run and resume with the checkpoints written
+    on the writer thread and bfloat16 first moments, under
+    --model_parallel 2 when a process group holds two ranks; and the
+    saved first moment's dtype after each call."""
     real = tcli_train.main
+    dtypes = []
 
     def main(argv):
-        return real(argv + (["--model_parallel", "2"]
-                            if mesh.world_size() > 1 else []))
+        best = real(argv + ["--ckpt_backend", "orbax",
+                            "--bf16_moments", "true"]
+                    + (["--model_parallel", "2"]
+                       if mesh.world_size() > 1 else []))
+        run = tmesh._run_dir(argv[argv.index("--log_root") + 1])
+        saved = torch.load(join(run, "checkpoints", "checkpoint.pth"),
+                           weights_only=True)["optimizer"]["state"]
+        dtypes.append(str(saved[0]["exp_avg"].dtype))
+        return best
     with mock.patch.object(tcli_train, "main", main):
-        return tmesh.case_run(tmp, kind)
+        out = tmesh.case_run(tmp, kind)
+    return {**out, "moment_dtypes": dtypes}
 
 
 def case_refusal(tmp):
@@ -295,6 +315,7 @@ CASES = {
     "jax_steps": (case_jax_steps, ()),
     **{f"steps_{t}": (case_task_steps, (t,)) for t in tmesh.TASKS},
     "clip": (case_task_steps, ("osie", CLIP)),
+    "bf16": (case_task_steps, ("osie", None, True)),
     "eval_forward": (case_eval_forward, ()),
     "checkpoint": (case_checkpoint, ()),
     **{f"run_{k}": (case_run, (k,)) for k in ("osie", "joint")},
@@ -303,10 +324,10 @@ CASES = {
 # (world, model_parallel, cases) of each mesh the ranks form in turn
 # (the cases that wait for the JAX side's inputs come last)
 MESHES = [(4, 2, ["steps_osie", "steps_air", "steps_coco", "jax_steps"]),
-          (2, 2, ["clip", "run_osie", "run_joint", "refusal", "checkpoint",
-                  "jax_steps", "eval_forward"])]
+          (2, 2, ["clip", "bf16", "run_osie", "run_joint", "refusal",
+                  "checkpoint", "jax_steps", "eval_forward"])]
 # the world-1 cases each rank left out of the last mesh runs
-WORLD1 = {2: ["steps_osie", "steps_air", "steps_coco", "clip"],
+WORLD1 = {2: ["steps_osie", "steps_air", "steps_coco", "clip", "bf16"],
           3: ["run_osie", "run_joint"]}
 
 
@@ -650,6 +671,20 @@ def test_tp_clip_matches_world1(ranks):
         tmesh._close_tree(got[0][key], want[key], key)
 
 
+def test_tp_bf16_moments_match_world1(ranks):
+    """--bf16_moments under TP: two supervised steps on the 1 x 2 mesh
+    against world 1 in float64, the first moments gathered whole in
+    bfloat16 (gloo all-reduces the bfloat16 slices): every metric, the
+    moments and the parameters."""
+    (want,) = ranks.read("bf16", ["w1"])
+    got = ranks.mesh("bf16", 2)
+    tmesh._close_metrics(got, want)
+    for r in (*got, want):
+        assert r["moment_dtype"] == "torch.bfloat16"
+    for key in ("sup_moments", "state"):
+        tmesh._close_tree(got[0][key], want[key], key)
+
+
 def test_tp_checkpoint_loads_into_world1_and_back(ranks):
     """A TP run's checkpoint (reference layout, gathered whole) loads
     into a world-1 model exactly, and a TP resume slices it back: the
@@ -662,9 +697,11 @@ def test_tp_checkpoint_loads_into_world1_and_back(ranks):
 @pytest.mark.parametrize("kind", ["osie", "joint"])
 def test_run_under_tp_matches_world1(ranks, kind):
     """cli.train --model_parallel 2 (a 1 x 2 mesh) and its resume
-    against world 1: both ranks step on every row, the lr scalars
+    against world 1, both with the async checkpoint writer and bfloat16
+    first moments: both ranks step on every row, the lr scalars
     exactly, every training scalar at rtol 1e-3, the record, one run dir
-    and checkpoint triad, rank 0 alone writing."""
+    and checkpoint triad (its first moment bfloat16), rank 0 alone
+    writing."""
     (want,) = ranks.read(f"run_{kind}", ["w1"])
     got0, got1 = ranks.mesh(f"run_{kind}", 2)
     assert got0["names"] == got1["names"] == want["names"]
@@ -675,6 +712,8 @@ def test_run_under_tp_matches_world1(ranks, kind):
     assert saved == run + "_supervised_save"
     assert got0["checkpoints"] == ["checkpoint.pth", "checkpoint_best.pth"]
     assert got0["saved"] and got0["args_logged"] == 2
+    assert got0["moment_dtypes"] == want["moment_dtypes"] == \
+        ["torch.bfloat16"] * 2
     scal = got0["scalars"]
     assert set(scal) == set(want["scalars"])
     for tag, by_step in want["scalars"].items():

@@ -529,10 +529,6 @@ def test_backbone_warm_start(synth_root, tmp_path):
     pytest.param(("--model_parallel", "3"), ValueError,
                  "--model_parallel 3 does not divide the 1 rank",
                  id="flags2-A13"),
-    pytest.param(("--ckpt_backend", "orbax"), NotImplementedError, "A17",
-                 id="flags3-A17"),
-    pytest.param(("--bf16_moments", "true"), NotImplementedError, "A18",
-                 id="flags4-A18"),
     pytest.param(("--stem_impl", "s2d"), NotImplementedError, "North star",
                  id="flags5-North star"),
 ])
