@@ -205,8 +205,28 @@ Phases, each reporting on its own lines and with its wall time:
    batch 8 in bfloat16 and float32, and bench_train sup 16 with and
    without --bf16_moments; each JSON line printed and finite, every MFU
    under 1.0, each kernel launched;
-13. prints the kernels' JSON line (phase 11's workers' launches added),
-   then {"ok": true, "device": ...} as the last line.
+13. the entry points and tools II (scanpaths_tpu_torch/entry.py and
+   tools/, full width unless named): (a) entry()'s fn(state, images),
+   once warm and once timed with CUDA events, its output shapes, finite
+   values and 16 cell and 3 stage launches a call, then at input scale
+   COMPARE_SCALE each kernel call against its plain version and the
+   outputs against the plain forward (F32_TOL); (b)
+   dryrun_multichip(2), two torchrun ranks sharing the card over gloo:
+   its step lines, 2 NW launches a rank (the SCST step), the world-1
+   step on rank 0 after the process group closes; (c)
+   tools.dist_smoke, two torchrun nodes of two ranks sharing the card,
+   ranks 2 and 3 on LOCAL_RANK 0 and 1 and cuda:0, their losses and
+   gradient norms against one process's (dist_smoke.RTOL);
+   (d) tools.real_data_smoke --task osie on a synthesized OSIE release
+   (800x600 stimuli, a fixations.mat) with a reference-layout
+   checkpoint_best.pth of seed weights: 2 steps, --device_eval true,
+   exit 0, the checkpoint loaded, predict_schema_ok, the loss and the
+   validation metric finite; (e) tools.profile_scan at batch 8 in
+   float32 and bfloat16, in a process of its own: each variant finite,
+   every loop's trace passing the tool's check (its busy shares
+   printed), 16 cell launches a decode loop;
+14. prints the kernels' JSON line (phase 11's and 13's workers'
+   launches added), then {"ok": true, "device": ...} as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.
@@ -3407,11 +3427,11 @@ def _save_state(model, m, out_dir, name):
                    os.path.join(out_dir, f"{name}.pt"))
 
 
-def checked_forward(cell, block, nw, model, batch, device):
-    """One eval forward of ``model`` on a host batch through the kernels,
-    each kernel call held to its plain version on the same inputs at
-    F32_TOL (scaled); returns (the outputs, the calls' largest errors, the
-    kernels' launches)."""
+@contextlib.contextmanager
+def checking_kernels(cell, block, label):
+    """Within the block every cell and stage kernel call is held to its
+    plain version on the same inputs at F32_TOL (scaled); yields the
+    lists of the calls' largest errors by kernel."""
     errs = {"cell_step": [], "stage_apply": []}
     cell_k, stage_k = cell.cell_step, block.stage_apply
 
@@ -3420,21 +3440,30 @@ def checked_forward(cell, block, nw, model, batch, device):
         h_k, c_k = cell_k(h, c, *a)
         h_p, c_p = cell.cell_step_plain(h, c_p, *a)
         errs["cell_step"].append(max(
-            _close("cell in TP forward", h_k, h_p, F32_TOL, scaled=True),
-            _close("cell in TP forward", c_k, c_p, F32_TOL, scaled=True)))
+            _close(f"cell in {label}", h_k, h_p, F32_TOL, scaled=True),
+            _close(f"cell in {label}", c_k, c_p, F32_TOL, scaled=True)))
         return h_k, c_k
 
     def checked_stage(x, dil, *w):
         y_k = stage_k(x, dil, *w)
         errs["stage_apply"].append(_close(
-            "stage in TP forward", y_k, block.stage_apply_plain(x, dil, *w),
+            f"stage in {label}", y_k, block.stage_apply_plain(x, dil, *w),
             F32_TOL, scaled=True))
         return y_k
 
-    from scanpaths_tpu_torch.serve.predictor import eval_forward
-    before = _launches(cell, block, nw)
     with mock.patch.object(cell, "cell_step", checked_cell), \
             mock.patch.object(block, "stage_apply", checked_stage):
+        yield errs
+
+
+def checked_forward(cell, block, nw, model, batch, device):
+    """One eval forward of ``model`` on a host batch through the kernels,
+    each kernel call held to its plain version on the same inputs at
+    F32_TOL (scaled); returns (the outputs, the calls' largest errors, the
+    kernels' launches)."""
+    from scanpaths_tpu_torch.serve.predictor import eval_forward
+    before = _launches(cell, block, nw)
+    with checking_kernels(cell, block, "TP forward") as errs:
         out = eval_forward(model, device, False, batch["images"],
                            batch.get("attention_maps"), batch.get("tasks"))
     torch.cuda.synchronize()
@@ -4120,6 +4149,243 @@ def run_tools_slice(cell, block, nw, tmp):
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the entry points and tools II
+# ---------------------------------------------------------------------------
+
+DRYRUN_RANKS = 2
+
+
+def check_entry(cell, block, nw):
+    """Phase 13(a): entry()'s fn(state, images) at full geometry, once
+    warm and once timed with CUDA events: the output shapes, finite
+    values, 16 cell and 3 stage launches a call; then, at input scale
+    COMPARE_SCALE, each kernel call held to its plain version on the same
+    inputs and the outputs to the plain forward's.  Returns the launches
+    of the two driven calls."""
+    from scanpaths_tpu_torch import entry
+    fn, (state, images) = entry.entry()
+    first = _launches(cell, block, nw)
+    fn(state, images)
+    torch.cuda.synchronize()
+    before = _launches(cell, block, nw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(state, images)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    driven = _minus(_launches(cell, block, nw), first)
+    got = _minus(_launches(cell, block, nw), before)
+    _expect("entry() forward", got, {"cell_step": SEQ, "stage_apply": 3,
+                                     "nw_scores_bins": 0})
+    n, mh, mw = images.shape[0], images.shape[1] // 8, images.shape[2] // 8
+    want = {"all_actions_prob": (n, SEQ, 1 + mh * mw),
+            "log_normal_mu": (n, SEQ), "log_normal_sigma2": (n, SEQ),
+            "action_map": (n, SEQ, mh, mw)}
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != want or not all(bool(torch.isfinite(v).all())
+                                 for v in out.values()):
+        raise AssertionError(f"entry() forward: {shapes}, finite "
+                             f"{[bool(torch.isfinite(v).all()) for v in out.values()]}")
+    gen = torch.Generator(device=images.device).manual_seed(3)
+    x = COMPARE_SCALE * torch.randn(images.shape, generator=gen,
+                                    device=images.device)
+    with checking_kernels(cell, block, "entry() forward") as errs:
+        out_k = fn(state, x)
+    with mock.patch.object(cell, "cell_step", cell.cell_step_plain), \
+            mock.patch.object(block, "stage_apply", block.stage_apply_plain):
+        out_p = fn(state, x)
+    torch.cuda.synchronize()
+    gaps = {k: _close(f"entry() forward {k} at scale {COMPARE_SCALE}",
+                      out_k[k], out_p[k], F32_TOL, scaled=True)
+            for k in out_k}
+    print(f"[entry] entry() fn(state, images) N={n} {8 * mh}x{8 * mw} "
+          f"T={SEQ} "
+          f"float32: {ms:.2f} ms (CUDA events, the call after a warm one); "
+          f"launches a call {got}; outputs {shapes}, finite; at input scale "
+          f"{COMPARE_SCALE} each kernel call against its plain version: "
+          + ", ".join(f"{k} {len(v)} calls, max abs err {max(v):.3g}"
+                      for k, v in errs.items())
+          + "; outputs against the plain forward: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()), flush=True)
+    del fn, state, out, out_k, out_p
+    torch.cuda.empty_cache()
+    return driven
+
+
+def check_dryrun(n):
+    """Phase 13(b): dryrun_multichip(n) on the card (n ranks sharing it
+    over gloo): its lines, and the launches its ranks report (training
+    steps launch no cell or stage kernel; each rank's SCST step 2 NW)."""
+    import re
+    from scanpaths_tpu_torch import entry
+    out = entry.dryrun_multichip(n)
+    lines = [line for line in out.splitlines() if line.startswith("dryrun")]
+    m = re.search(r"dryrun kernel launches over the \d+ ranks: (\{.*\})",
+                  out)
+    if len(lines) != 4 or m is None:
+        raise AssertionError(f"dryrun_multichip({n}): {out[-3000:]}")
+    got = json.loads(m.group(1))
+    _expect(f"dryrun_multichip({n})", got, {
+        "cell_step": 0, "stage_apply": 0, "nw_scores_bins": 2 * n})
+    return got
+
+
+def check_dist_smoke(tmp):
+    """Phase 13(c): tools.dist_smoke, 2 nodes x 2 ranks sharing the card
+    over gloo, against one process (the tool checks the ranks' places and
+    the losses and gradient norms at its card bounds, dist_smoke.RTOL);
+    the supervised steps launch no kernel."""
+    from scanpaths_tpu_torch.tools import dist_smoke
+    r = dist_smoke.launch(os.path.join(tmp, "dist_smoke"), "cuda")
+    shutil.rmtree(os.path.join(tmp, "dist_smoke"))
+    print("[entry] dist_smoke, 2 nodes x 2 ranks on the one card: (RANK, "
+          "LOCAL_RANK, device, backend) "
+          + ", ".join(f"({x['rank']}, {x['local_rank']}, {x['device']}, "
+                      f"{x['backend']})" for x in r["ranks"])
+          + "; " + "; ".join(
+              f"{k} {r['ranks'][0][k]} against one process's "
+              f"{r['single'][k]}, relative gaps {r['gap'][k]} (bounds "
+              f"{dist_smoke.RTOL['cuda'][k]}: the first step, every step)"
+              for k in r["gap"]), flush=True)
+
+
+def check_real_data(cell, block, nw, tmp):
+    """Phase 13(d): tools.real_data_smoke --task osie at full width on a
+    synthesized OSIE release (tools/synth.py::make_osie_release: 9
+    train/validation and 2 test images of 800x600, 4 subjects each) with
+    a checkpoint_best.pth of seed weights in the reference layout in the
+    released one's place: 2 steps, --device_eval true.  It must exit 0,
+    load the checkpoint and write records in the reference schema.
+    Returns its launches."""
+    from scanpaths_tpu_torch.models import port
+    from scanpaths_tpu_torch.models.scanpath_model import (ScanpathModel,
+                                                           init_weights)
+    from scanpaths_tpu_torch.tools import real_data_smoke, synth
+    root = os.path.join(tmp, "real_data")
+    synth.make_osie_release(root, np.random.default_rng(0))
+    model = ScanpathModel("osie")
+    init_weights(model, 0)
+    torch.save({"model": port.to_reference_state_dict(
+        model.state_dict(), "osie", 30, 40)},
+        os.path.join(root, "osie", "checkpoint_best.pth"))
+    del model
+    out = os.path.join(tmp, "real_data.json")
+    before = _launches(cell, block, nw)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = real_data_smoke.main([
+            "--root", root, "--task", "osie", "--steps", "2",
+            "--device_eval", "true", "--device", "cuda", "--workdir",
+            os.path.join(tmp, "real_data_work"), "--out", out])
+    secs = time.perf_counter() - t0
+    got = _minus(_launches(cell, block, nw), before)
+    with open(out) as f:
+        (rep,) = json.load(f)["tasks"]
+    ck = rep.get("released_checkpoint", {})
+    if rc != 0 or rep.get("predict_schema_ok") is not True or \
+            not ck.get("ok") or rep.get("train_steps") != 2 or \
+            not all(got.values()) or not all(
+                math.isfinite(rep.get(k, math.nan)) for k in (
+                    "loss_first", "loss_last",
+                    "validation_selection_metric")):
+        raise AssertionError(f"real_data_smoke: rc {rc}, {rep}, launches "
+                             f"{got}")
+    print(f"[entry] real_data_smoke --task osie, full width: exit {rc} in "
+          f"{secs:.1f} s; preprocess {rep['preprocess_records']}; released "
+          f"checkpoint loaded ({ck['ported_params']} parameters, "
+          f"{ck['geometry']}); {rep['train_steps']} steps, loss "
+          f"{rep['loss_first']} (the mean of the steps, finite); validation "
+          f"metric "
+          f"{rep['validation_selection_metric']}; "
+          f"{rep['predict_artifact']} predict_schema_ok "
+          f"{rep['predict_schema_ok']}; launches {got}", flush=True)
+    shutil.rmtree(root)
+    shutil.rmtree(os.path.join(tmp, "real_data_work"))
+    torch.cuda.empty_cache()
+    return got
+
+
+PROFILE_TIMEOUT = 300  # s, the profile_scan process
+
+
+def check_profile_scan(smi):
+    """Phase 13(e): ``python -m scanpaths_tpu_torch.tools.profile_scan``
+    at batch BATCH, full width, float32 and bfloat16, in a process of its
+    own (a fresh profiler: in this long process the trace has lost device
+    events): each variant's line finite (the tool raises otherwise), each
+    loop's trace passing the tool's check (a cell-kernel event a step,
+    the device time within the span), 16 cell launches a loop of a
+    variant and 3 stage launches (the hoisted inputs) a dtype, as the
+    tool's records count them.  Returns the launches."""
+    import signal
+    from scanpaths_tpu_torch.tools import profile_scan
+    cmd = [sys.executable, "-m", "scanpaths_tpu_torch.tools.profile_scan",
+           "--batch", str(BATCH), "--iters", str(TOOL_ITERS)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(SCRIPT),
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=PROFILE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"profile_scan passed {PROFILE_TIMEOUT} s:\n"
+                             f"{out[-4000:]}")
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    if proc.returncode or [r["dtype"] for r in recs] != ["float32",
+                                                          "bfloat16"]:
+        raise AssertionError(f"profile_scan exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    total = {"cell_step": 0, "stage_apply": 0, "nw_scores_bins": 0}
+    for rec in recs:
+        loops = len(profile_scan.VARIANTS) * rec["loops_per_variant"]
+        _expect(f"profile_scan {rec['dtype']}", rec["launches"], {
+            "cell_step": SEQ * loops, "stage_apply": 3,
+            "nw_scores_bins": 0})
+        bad = {k: v for k, v in rec["trace"].items() if v != "ok"}
+        if bad:
+            raise AssertionError(f"profile_scan {rec['dtype']}: the trace "
+                                 f"cannot give the busy share: {bad}")
+        for k in total:
+            total[k] += rec["launches"][k]
+        print(f"[entry] profile_scan {rec['dtype']} batch {BATCH}: ms a "
+              "step " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  rec["ms_per_step"].items())
+              + "; busy share " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in rec["busy_share"].items())
+              + f" (every trace checked); launches {rec['launches']}; "
+              f"{smi}", flush=True)
+    return total
+
+
+def run_entry_slice(cell, block, nw, tmp, smi):
+    """Phase 13: check_entry, check_dryrun, check_dist_smoke,
+    check_real_data and check_profile_scan in turn, each with its wall
+    time.  Returns the kernels' launches of the phase."""
+    total = {"cell_step": 0, "stage_apply": 0, "nw_scores_bins": 0}
+    for label, run in (
+            ("entry()", lambda: check_entry(cell, block, nw)),
+            (f"dryrun_multichip({DRYRUN_RANKS})",
+             lambda: check_dryrun(DRYRUN_RANKS)),
+            ("dist_smoke", lambda: check_dist_smoke(tmp)),
+            ("real_data_smoke", lambda: check_real_data(cell, block, nw,
+                                                         tmp)),
+            ("profile_scan", lambda: check_profile_scan(smi))):
+        t0 = time.perf_counter()
+        got = run()
+        for k, v in (got or {}).items():
+            total[k] += v
+        print(f"[entry] {label}: {time.perf_counter() - t0:.1f} s wall; "
+              f"{_memory()}", flush=True)
+    print(f"[entry] launches {total}", flush=True)
+    return total
+
+
 def print_ptxas(log):
     """One line per compiled kernel from ptxas -v: its name with template
     arguments, registers, spills and shared memory."""
@@ -4141,9 +4407,26 @@ def print_ptxas(log):
             name = None
 
 
+def _memory():
+    """The host's available memory, this process's resident set and the
+    use of the temporary directory's filesystem, in GiB (/proc and
+    statvfs)."""
+    with open("/proc/meminfo") as f:
+        info = {k: int(v.split()[0]) / 2**20 for k, v in
+                (line.split(":", 1) for line in f)}
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS")) / 2**20
+    tmp = tempfile.gettempdir()
+    du = shutil.disk_usage(tmp)
+    return (f"host {info['MemAvailable']:.1f} of {info['MemTotal']:.1f} GiB "
+            f"available, this process {rss:.1f} GiB resident, {tmp} "
+            f"{du.used / 2**30:.1f} of {du.total / 2**30:.1f} GiB used")
+
+
 def _phase(name, t0):
-    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s wall",
-          flush=True)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s wall; "
+          f"{_memory()}", flush=True)
 
 
 def main():
@@ -4253,6 +4536,19 @@ def main():
         t0 = time.perf_counter()
         add(run_tools_slice(cell, block, nw, tmp))
         _phase("tools", t0)
+
+        # nothing after phase 12 reads the earlier phases' files, and
+        # where the temporary directory is in memory they hold host RAM
+        # that phase 13's processes need
+        for name in os.listdir(tmp):
+            path = os.path.join(tmp, name)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
+        t0 = time.perf_counter()
+        add(run_entry_slice(cell, block, nw, tmp, smi))
+        _phase("entry points and tools II", t0)
 
     sources = {"cell_step": ("scanpaths_tpu_torch/csrc/cell.cu",
                              "scanpaths_tpu/ops/pallas_cell.py:218"),

@@ -7,6 +7,10 @@ convergence run's.
 
 Layout written under ``root``: ``stimuli/*.jpg`` and
 ``fixations/osie_fixations_{split}.json``.
+
+:func:`make_osie_release` (the port's own) writes OSIE in the form of
+its public release instead, a ``fixations.mat`` to preprocess, for the
+real-data drive (``tools/real_data_smoke.py``).
 """
 
 from __future__ import annotations
@@ -141,3 +145,52 @@ def make_osie_headroom(root, rng, **kw):
     counting the policy-entropy reduction itself."""
     return make_osie_structured(root, rng, noise_px=40, order_swap_p=0.3,
                                 dwell_noise_ms=100, **kw)
+
+
+def _track(x, y, t):
+    arr = np.zeros((1, 1), dtype=[("x", "O"), ("y", "O"), ("t", "O")])
+    arr[0, 0] = (np.asarray(x, float)[None, :],
+                 np.asarray(y, float)[None, :],
+                 np.asarray(t, float)[None, :])
+    return arr
+
+
+def _example(name, tracks):
+    subjects = np.zeros((len(tracks), 1), dtype=object)
+    for i, tr in enumerate(tracks):
+        subjects[i, 0] = tr
+    arr = np.zeros((1, 1), dtype=[("img", "O"), ("subjects", "O")])
+    arr[0, 0] = (np.array([name]), subjects)
+    return arr
+
+
+def make_osie_release(root, rng, n_trainval=9, n_test=2, n_subjects=4):
+    """OSIE in its release's form under ``root``: ``osie/stimuli/*.jpg``
+    (800x600) and ``osie/fixations.mat``, the struct array
+    ``data/preprocess.py::preprocess_osie`` reads (one ``img`` and
+    ``subjects`` of x, y, t tracks an image; 3-6 fixations of 150-500
+    ms).  ``n_trainval`` images go to the 8:1 train/validation split and
+    ``n_test`` of the fixed test list to the test split.  With the
+    defaults and ``default_rng(0)`` it is ``tests/test_real_data_smoke.py``'s
+    layout: 32 train, 4 validation and 8 test records."""
+    import scipy.io as sio
+
+    from ..data.preprocess import OSIE_TEST_IMAGES
+    stimuli = join(root, "osie", "stimuli")
+    os.makedirs(stimuli, exist_ok=True)
+    names = ([f"{3000 + i}.jpg" for i in range(n_trainval)]
+             + OSIE_TEST_IMAGES[:n_test])
+    fx = np.zeros((len(names), 1), dtype=object)
+    for i, name in enumerate(names):
+        Image.fromarray(rng.integers(0, 255, (600, 800, 3),
+                                     dtype=np.uint8)).save(join(stimuli,
+                                                                name))
+        tracks = []
+        for _ in range(n_subjects):
+            n = int(rng.integers(3, 7))
+            tracks.append(_track(rng.uniform(0, 800, n),
+                                 rng.uniform(0, 600, n),
+                                 rng.uniform(150, 500, n)))
+        fx[i, 0] = _example(name, tracks)
+    sio.savemat(join(root, "osie", "fixations.mat"), {"fixations": fx})
+    return root

@@ -31,7 +31,11 @@ def test_port_imports_without_jax():
             "scanpaths_tpu_torch.utils.checkpointing",
             "scanpaths_tpu_torch.native",
             "scanpaths_tpu_torch.train.mesh",
-            "scanpaths_tpu_torch.train.tp_step"} <= set(mods)
+            "scanpaths_tpu_torch.train.tp_step",
+            "scanpaths_tpu_torch.entry",
+            "scanpaths_tpu_torch.tools.dist_smoke",
+            "scanpaths_tpu_torch.tools.real_data_smoke",
+            "scanpaths_tpu_torch.tools.profile_scan"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['scanpaths_tpu'] = None\n"
