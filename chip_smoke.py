@@ -250,6 +250,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from scanpaths_tpu_torch.utils import tracing
+
 F32_TOL = 1e-4   # atol = rtol, float32 with TF32 off
 BF16_TOL = 2e-2  # atol = rtol, bfloat16 storage, float32 accumulation
 HOST_RTOL, HOST_ATOL = 2e-4, 2e-5  # device sweep vs host suite
@@ -676,7 +678,7 @@ def run_slice(cell, block, predict, tmp, task):
     totals = {"cell_step": 0, "stage_apply": 0}
     for decode, half in runs:
         step, streams = _counting_streams(cell)
-        cell.cell_launches = block.block_launches = 0
+        tracing.reset_counters("cell_step.launches", "stage_apply.launches")
         t0 = time.perf_counter()
         with mock.patch.object(cell, "cell_step", step), \
                 capture_durations() as calls:
@@ -687,7 +689,8 @@ def run_slice(cell, block, predict, tmp, task):
                 os.path.join(tmp, f"{task}_{decode}_{half}.json")])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        dc, db = cell.cell_launches, block.block_launches
+        dc = tracing.counter("cell_step.launches")
+        db = tracing.counter("stage_apply.launches")
         inf = overflowed_durations(
             calls, [min(BATCH, IMAGES - lo) for lo in range(0, IMAGES, BATCH)]
             if decode == "sample" else [], task, True)
@@ -1369,7 +1372,7 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
             sweep_secs[0] += time.perf_counter() - t
             return out
 
-        cell.cell_launches = block.block_launches = nw.nw_launches = 0
+        tracing.reset_counters()
         t0 = time.perf_counter()
         # the CLI's logger echoes its metric trees (log_test.txt keeps
         # them); they stay off the console, which keeps this script's
@@ -1384,9 +1387,7 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
             metrics = test_cli.main(argv + ["--half_precision", half])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {"cell_step": cell.cell_launches,
-               "stage_apply": block.block_launches,
-               "nw_scores_bins": nw.nw_launches}
+        got = tracing.launches()
         if got != want:
             raise AssertionError(f"{task} test --half_precision {half}: "
                                  f"launches {got}, expected {want}")
@@ -1560,7 +1561,7 @@ def run_train_slice(cell, block, nw, argv):
     streams = 2 if task == "air" else 1
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
-    cell.cell_launches = block.block_launches = nw.nw_launches = 0
+    tracing.reset_counters()
     torch.cuda.reset_peak_memory_stats()
     state = steps.TrainState.create(_train_model(args), args,
                                     len(sup_loader), len(rl_loader),
@@ -1632,9 +1633,7 @@ def run_train_slice(cell, block, nw, argv):
             raise AssertionError("osie bf16 supervised step: the float32 "
                                  "parameters did not move or are not finite")
         del half, model
-    got = {"cell_step": cell.cell_launches,
-           "stage_apply": block.block_launches,
-           "nw_scores_bins": nw.nw_launches}
+    got = tracing.launches()
     want = {"cell_step": 0, "stage_apply": 0,
             "nw_scores_bins": TRAIN_STEPS * streams * 2
             + (TRAIN_STEPS * 2 if rl_cfg.apply_cd else 0)}
@@ -1973,12 +1972,6 @@ def write_trainer_split(tmp, task):
             "--device", "cuda"] + maps.get(task, [])
 
 
-def _launches(cell, block, nw):
-    return {"cell_step": cell.cell_launches,
-            "stage_apply": block.block_launches,
-            "nw_scores_bins": nw.nw_launches}
-
-
 def _minus(a, b):
     return {k: a[k] - b[k] for k in a}
 
@@ -2028,7 +2021,7 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck, trace=True):
         window.update(first=iteration, n=len(loader), stamps=[], prof=None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before, calls = _launches(cell, block, nw), []
+        before, calls = tracing.launches(), []
         with (_timed_calls(nw, "nw_scores_bins", calls, keep_args=True)
               if rl else contextlib.nullcontext()):
             out = real["train_epoch"](self, iteration, epoch)
@@ -2042,7 +2035,7 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck, trace=True):
             busy = _union_ms([iv for ivs in streams.values() for iv in ivs])
         records.append(dict(
             kind="epoch", rl=rl, stats=dict(self.epoch_stats),
-            launches=_minus(_launches(cell, block, nw), before),
+            launches=_minus(tracing.launches(), before),
             peak=torch.cuda.max_memory_allocated(), nw_calls=calls,
             busy=busy, span=span,
             free_rate=(free - 1) / (stamps[free - 1] - stamps[0])
@@ -2078,21 +2071,21 @@ def trainer_probes(cell, block, nw, tr, device_eval, ck, trace=True):
 
     def validation_device(self, iteration):
         torch.cuda.synchronize()
-        before, sweep[0], t0 = (_launches(cell, block, nw), 0.0,
+        before, sweep[0], t0 = (tracing.launches(), 0.0,
                                 time.perf_counter())
         out = real["validation_device"](self, iteration)
         torch.cuda.synchronize()
         records.append(dict(kind="validation", wall=time.perf_counter() - t0,
                             sweep=sweep[0],
-                            launches=_minus(_launches(cell, block, nw),
+                            launches=_minus(tracing.launches(),
                                             before)))
         return out
 
     def human_baseline(self):
-        before, t0 = _launches(cell, block, nw), time.perf_counter()
+        before, t0 = tracing.launches(), time.perf_counter()
         out = real["human_baseline"](self)
         records.append(dict(kind="human", wall=time.perf_counter() - t0,
-                            launches=_minus(_launches(cell, block, nw),
+                            launches=_minus(tracing.launches(),
                                             before)))
         return out
 
@@ -2345,9 +2338,9 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
         t0 = time.perf_counter()
         with trainer_probes(cell, block, nw, tr, device_eval, ck) as recs, \
                 contextlib.redirect_stdout(io.StringIO()):
-            before = _launches(cell, block, nw)
+            before = tracing.launches()
             best = train_cli.main(run_argv)
-            got = _minus(_launches(cell, block, nw), before)
+            got = _minus(tracing.launches(), before)
         secs = time.perf_counter() - t0
         for k in total:
             total[k] += got[k]
@@ -2391,7 +2384,7 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
     def evaluate(self, *a, **kw):
         seen.append(real_eval(self, *a, **kw))
         return seen[-1]
-    before = _launches(cell, block, nw)
+    before = tracing.launches()
     t0 = time.perf_counter()
     with mock.patch.object(predictor, "checkpoint_path", checkpoint_path), \
             mock.patch.object(tr.EvalCore, "evaluate", evaluate), \
@@ -2399,7 +2392,7 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
         metrics = test_cli.main(test_argv)
     torch.cuda.synchronize()
     test_wall = time.perf_counter() - t0
-    got = _minus(_launches(cell, block, nw), before)
+    got = _minus(tracing.launches(), before)
     for k in total:
         total[k] += got[k]
     want_path = os.path.join(log_dir, "checkpoints", "checkpoint_best.pth")
@@ -2599,7 +2592,7 @@ def joint_probes(cell, block, nw, jt, steps, device_eval, ck):
             task = state.model.task
             epoch["seen"][task] += 1
             profiled = epoch["seen"][task] > epoch["n"][task] - PROFILE_STEPS
-            before, calls, prof = _launches(cell, block, nw), [], None
+            before, calls, prof = tracing.launches(), [], None
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             if profiled:
@@ -2616,7 +2609,7 @@ def joint_probes(cell, block, nw, jt, steps, device_eval, ck):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             rec = dict(kind="step", task=task, rl=kind == "rl",
-                       launches=_minus(_launches(cell, block, nw), before),
+                       launches=_minus(tracing.launches(), before),
                        wall=wall, span=start.elapsed_time(end),
                        peak=torch.cuda.max_memory_allocated(),
                        nw_calls=calls, profiled=profiled)
@@ -2636,24 +2629,24 @@ def joint_probes(cell, block, nw, jt, steps, device_eval, ck):
 
     def evaluate(self, loader, device_eval_, iteration=0, record=None):
         torch.cuda.synchronize()
-        before, sweep[0], t0 = (_launches(cell, block, nw), 0.0,
+        before, sweep[0], t0 = (tracing.launches(), 0.0,
                                 time.perf_counter())
         out = real_eval(self, loader, device_eval_, iteration, record)
         torch.cuda.synchronize()
         records.append(dict(kind="validation", task=self.task,
                             wall=time.perf_counter() - t0, sweep=sweep[0],
                             forwards=len(loader),
-                            launches=_minus(_launches(cell, block, nw),
+                            launches=_minus(tracing.launches(),
                                             before)))
         return out
 
     def human_metrics(self, loader, device_eval_):
-        before, t0 = _launches(cell, block, nw), time.perf_counter()
+        before, t0 = tracing.launches(), time.perf_counter()
         out = real_human(self, loader, device_eval_)
         torch.cuda.synchronize()
         records.append(dict(kind="human", task=self.task, forwards=len(loader),
                             wall=time.perf_counter() - t0,
-                            launches=_minus(_launches(cell, block, nw),
+                            launches=_minus(tracing.launches(),
                                             before)))
         return out
 
@@ -2929,9 +2922,9 @@ def run_joint_slice(cell, block, nw, tmp):
     t0 = time.perf_counter()
     with joint_probes(cell, block, nw, jt, steps, device_eval, ck) as (
             records, held), contextlib.redirect_stdout(io.StringIO()):
-        before = _launches(cell, block, nw)
+        before = tracing.launches()
         best = train_cli.main(argv)
-        total = _minus(_launches(cell, block, nw), before)
+        total = _minus(tracing.launches(), before)
     secs = time.perf_counter() - t0
     trainer = held.pop("trainer")
     checked = check_joint_records(records, nw, args.eval_repeat_num)
@@ -2966,7 +2959,7 @@ def run_joint_slice(cell, block, nw, tmp):
     fw = -(-JOINT_IMAGES // args.batch)
     for task in TASKS:
         streams = 2 if task == "air" else 1
-        before, t0 = _launches(cell, block, nw), time.perf_counter()
+        before, t0 = tracing.launches(), time.perf_counter()
         with mock.patch.object(predictor, "checkpoint_path",
                                checkpoint_path), \
                 contextlib.redirect_stdout(io.StringIO()):
@@ -2975,7 +2968,7 @@ def run_joint_slice(cell, block, nw, tmp):
                 "--eval_repeat_num", str(REPEATS), "--seed", "0",
                 "--device_eval", "true", "--device", "cuda"])
         torch.cuda.synchronize()
-        got = _minus(_launches(cell, block, nw), before)
+        got = _minus(tracing.launches(), before)
         if opened[-1:] != [want_path]:
             raise AssertionError(f"{task} test on the joint run read "
                                  f"{opened}, expected {want_path}")
@@ -2998,7 +2991,7 @@ def run_joint_slice(cell, block, nw, tmp):
 
     # serving the run's COCO head
     img_dir = serving_images(tmp)
-    cell.cell_launches = block.block_launches = 0
+    tracing.reset_counters("cell_step.launches", "stage_apply.launches")
     t0 = time.perf_counter()
     with mock.patch.object(predictor, "checkpoint_path", checkpoint_path), \
             capture_durations() as calls:
@@ -3018,7 +3011,8 @@ def run_joint_slice(cell, block, nw, tmp):
         calls, [min(BATCH, IMAGES - lo) for lo in range(0, IMAGES, BATCH)],
         "coco", True)
     _check_records(records, IMAGES, 10, 320, 240, overflow=inf)
-    got = {"cell_step": cell.cell_launches, "stage_apply": block.block_launches}
+    got = {"cell_step": tracing.counter("cell_step.launches"),
+           "stage_apply": tracing.counter("stage_apply.launches")}
     _expect("predict on the joint run", got, {
         "cell_step": SEQ * forwards, "stage_apply": 3 * forwards})
     for k in got:
@@ -3178,7 +3172,7 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
         records and the launches (16 cell, cell ops with S streams, and 3
         stage a call)."""
         task = serving[name]
-        cell.cell_launches = block.block_launches = 0
+        tracing.reset_counters("cell_step.launches", "stage_apply.launches")
         with mock.patch.object(predict, "load_bundle", load):
             records = predict.main(
                 ["--task", task, "--bundle", d, "--predict_images", img_dir,
@@ -3187,8 +3181,8 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
                 + serving_inputs(tmp, task))
         torch.cuda.synchronize()
         fn, mf, load_s = loaded[d]
-        got = {"cell_step": cell.cell_launches,
-               "stage_apply": block.block_launches}
+        got = {"cell_step": tracing.counter("cell_step.launches"),
+               "stage_apply": tracing.counter("stage_apply.launches")}
         _expect(f"bundle {name}", got, {"cell_step": SEQ * calls,
                                         "stage_apply": 3 * calls})
         streams = _program_streams(fn)
@@ -3239,11 +3233,11 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
     def counted(label, calls, run):
         """``run()``'s bundle calls, with their launches checked and
         added to the phase's."""
-        cell.cell_launches = block.block_launches = 0
+        tracing.reset_counters("cell_step.launches", "stage_apply.launches")
         out = run()
         torch.cuda.synchronize()
-        _expect(label, {"cell_step": cell.cell_launches,
-                        "stage_apply": block.block_launches},
+        _expect(label, {k: tracing.launches()[k]
+                        for k in ("cell_step", "stage_apply")},
                 {"cell_step": SEQ * calls, "stage_apply": 3 * calls})
         total["cell_step"] += SEQ * calls
         total["stage_apply"] += 3 * calls
@@ -3299,12 +3293,14 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
             del pred
             pred = predictor_mod.Predictor(parse_opt(
                 flags + ["--half_precision", half]), DEVICE)
-        kernels = cell.cell_launches, block.block_launches
+        kernels = tracing.counter("cell_step.launches"), \
+            tracing.counter("stage_apply.launches")
         bundle_ms, live_ms = _pair_ms(lambda: fn(images),
                                       lambda: live(pred, images), TIME_ITERS)
         n = 2 + 4 * TIME_ITERS
-        if (cell.cell_launches - kernels[0], block.block_launches
-                - kernels[1]) != (n * SEQ, n * 3):
+        if (tracing.counter("cell_step.launches") - kernels[0],
+                tracing.counter("stage_apply.launches") - kernels[1]) \
+                != (n * SEQ, n * 3):
             raise AssertionError("timed calls: unexpected launches")
         dtype = "bfloat16" if half == "true" else "float32"
         print(f"[export] osie {dtype} batch {BATCH}: bundle {bundle_ms:.2f} "
@@ -3462,14 +3458,14 @@ def checked_forward(cell, block, nw, model, batch, device):
     F32_TOL (scaled); returns (the outputs, the calls' largest errors, the
     kernels' launches)."""
     from scanpaths_tpu_torch.serve.predictor import eval_forward
-    before = _launches(cell, block, nw)
+    before = tracing.launches()
     with checking_kernels(cell, block, "TP forward") as errs:
         out = eval_forward(model, device, False, batch["images"],
                            batch.get("attention_maps"), batch.get("tasks"))
     torch.cuda.synchronize()
     return ({k: v.cpu() for k, v in out.items()},
             {k: max(v) for k, v in errs.items()},
-            _minus(_launches(cell, block, nw), before))
+            _minus(tracing.launches(), before))
 
 
 def dp_steps_worker(out_dir, job_path):
@@ -3572,7 +3568,7 @@ def _dp_run(run, argv, m, out_dir):
             gen = torch.Generator(device=m.device).manual_seed(args.seed)
             reduce_ms = []
             metrics, step_ms, calls = [], [], []
-            cell.cell_launches = block.block_launches = nw.nw_launches = 0
+            tracing.reset_counters()
             # the all-reduce is timed where there is one: a synchronised
             # wrapper in a step that has none would only stall it
             with (mock.patch.object(mesh, "reduce_gradients", timed_reduce)
@@ -3597,7 +3593,7 @@ def _dp_run(run, argv, m, out_dir):
                         if len(metrics) == 1:
                             _save_state(state.model, m, out_dir,
                                         f"{tag}_first")
-            launches = _launches(cell, block, nw)
+            launches = tracing.launches()
             for i, (_, _, a, got) in enumerate(calls):
                 _exact(f"{task} rank {m.rank} SCST NW call {i + 1}", got,
                        nw.nw_scores_bins_plain(*a))
@@ -3631,7 +3627,7 @@ def _dp_run(run, argv, m, out_dir):
         def evaluate(self, *a, **kw):
             seen.append(real_eval(self, *a, **kw))
             return seen[-1]
-        before = _launches(cell, block, nw)
+        before = tracing.launches()
         t0 = time.perf_counter()
         with mock.patch.object(trainer.EvalCore, "evaluate", evaluate), \
                 contextlib.redirect_stdout(io.StringIO()):
@@ -3641,7 +3637,7 @@ def _dp_run(run, argv, m, out_dir):
         res["tests"].append(dict(
             task=test_argv[test_argv.index("--task") + 1], metrics=metrics,
             stds=stds, records=records, wall=time.perf_counter() - t0,
-            launches=_minus(_launches(cell, block, nw), before)))
+            launches=_minus(tracing.launches(), before)))
     return res
 
 
@@ -3659,9 +3655,9 @@ def dp_train_worker(out_dir, argv):
     with trainer_probes(cell, block, nw, tr, device_eval, ck,
                         trace=False) as recs, \
             contextlib.redirect_stdout(io.StringIO()):
-        before = _launches(cell, block, nw)
+        before = tracing.launches()
         train_cli.main(argv)
-        got = _minus(_launches(cell, block, nw), before)
+        got = _minus(tracing.launches(), before)
     checked = 0
     for rec in recs:
         for i, (_, _, a, out) in enumerate(rec.pop("nw_calls", [])):
@@ -4124,7 +4120,7 @@ def run_tools_slice(cell, block, nw, tmp):
                                           bench_train, common,
                                           profile_bench)
     geo = dict(common.FULL)
-    before = _launches(cell, block, nw)
+    before = tracing.launches()
     recs = bench_steps.bench_nw("cuda", iters=TOOL_ITERS)
     if recs[-1]["value"] != 0.0 or not recs[-1]["nan_in_same_places"]:
         raise AssertionError(f"bench_steps nw: {recs[-1]}")
@@ -4142,7 +4138,7 @@ def run_tools_slice(cell, block, nw, tmp):
                                       bf16_moments=bf16, iters=TOOL_ITERS)
         bench_train.bench_sup(flags, geo, 16)
         torch.cuda.empty_cache()
-    got = _minus(_launches(cell, block, nw), before)
+    got = _minus(tracing.launches(), before)
     if not all(got.values()):
         raise AssertionError(f"tools: launches {got}")
     print(f"[tools] launches {got}", flush=True)
@@ -4165,10 +4161,10 @@ def check_entry(cell, block, nw):
     of the two driven calls."""
     from scanpaths_tpu_torch import entry
     fn, (state, images) = entry.entry()
-    first = _launches(cell, block, nw)
+    first = tracing.launches()
     fn(state, images)
     torch.cuda.synchronize()
-    before = _launches(cell, block, nw)
+    before = tracing.launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -4176,8 +4172,8 @@ def check_entry(cell, block, nw):
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end)
-    driven = _minus(_launches(cell, block, nw), first)
-    got = _minus(_launches(cell, block, nw), before)
+    driven = _minus(tracing.launches(), first)
+    got = _minus(tracing.launches(), before)
     _expect("entry() forward", got, {"cell_step": SEQ, "stage_apply": 3,
                                      "nw_scores_bins": 0})
     n, mh, mw = images.shape[0], images.shape[1] // 8, images.shape[2] // 8
@@ -4273,7 +4269,7 @@ def check_real_data(cell, block, nw, tmp):
         os.path.join(root, "osie", "checkpoint_best.pth"))
     del model
     out = os.path.join(tmp, "real_data.json")
-    before = _launches(cell, block, nw)
+    before = tracing.launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = real_data_smoke.main([
@@ -4281,7 +4277,7 @@ def check_real_data(cell, block, nw, tmp):
             "--device_eval", "true", "--device", "cuda", "--workdir",
             os.path.join(tmp, "real_data_work"), "--out", out])
     secs = time.perf_counter() - t0
-    got = _minus(_launches(cell, block, nw), before)
+    got = _minus(tracing.launches(), before)
     with open(out) as f:
         (rep,) = json.load(f)["tasks"]
     ck = rep.get("released_checkpoint", {})

@@ -184,8 +184,8 @@ def _dryrun_body(n_devices: int, device: str) -> None:
 
     Rank 0 prints a line a step and the kernel launches of all ranks."""
     from .core.grid import GridSpec
-    from .ops import block, cell, nw
     from .train import mesh, steps, tp_step
+    from .utils import tracing
 
     m = mesh.make_mesh(argparse.Namespace(mesh_size=0, model_parallel=1),
                        device)
@@ -266,9 +266,7 @@ def _dryrun_body(n_devices: int, device: str) -> None:
     # ---- the step's time at world n (n images) ----
     tn = _step_seconds(state, rows(batch))
 
-    counts = {"cell_step": cell.cell_launches,
-              "stage_apply": block.block_launches,
-              "nw_scores_bins": nw.nw_launches}
+    counts = tracing.launches()
     got = mesh.gather_to_primary([(m.rank, counts)])
     if m.is_primary:
         total = {k: sum(c[k] for _, c in got) for k in counts}

@@ -35,6 +35,7 @@ from torch import nn
 
 from ..ops import block as block_ops
 from ..train import mesh
+from ..utils import tracing
 
 # (planes, first-block stride, dilation) per stage after the dilation
 # patch — the JAX package's _STAGES table
@@ -204,42 +205,44 @@ def fused_forward(net: DilatedResNet50, images, dtype=torch.float32):
     blocks and all of layer 4 are plain folded convolutions.
 
     images: NHWC [N, H, W, 3]; returns NHWC [N, H/8, W/8, 2048] in
-    ``dtype``."""
+    ``dtype``.  One span, ``trunk`` (``utils/tracing.py``)."""
 
     def fold(conv, bn):
         k, b = block_ops.fold_conv_bn(conv, bn)
         return k.to(dtype), b.to(dtype)
 
-    k1, b1 = fold(net.conv1, net.bn1)
-    x = F.relu(_conv_nhwc(images.to(dtype), k1, b1, stride=2, pad=3))
-    x = _ceil_maxpool(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+    with tracing.span("trunk"):
+        k1, b1 = fold(net.conv1, net.bn1)
+        x = F.relu(_conv_nhwc(images.to(dtype), k1, b1, stride=2, pad=3))
+        x = _ceil_maxpool(x.permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1).contiguous()
 
-    for si, ((_, stride, dil), blocks) in enumerate(
-            zip(_STAGES, net.layers), start=1):
-        blk = net.block(si, 0)
-        kc1, bc1 = fold(blk.conv1, blk.bn1)
-        kc2, bc2 = fold(blk.conv2, blk.bn2)
-        kc3, bc3 = fold(blk.conv3, blk.bn3)
-        kd, bd = fold(blk.downsample_conv, blk.downsample_bn)
-        out = F.relu(_conv_nhwc(x, kc1, bc1, stride=stride))
-        out = F.relu(_conv_nhwc(out, kc2, bc2, pad=dil, dil=dil))
-        out = _conv_nhwc(out, kc3, bc3)
-        x = F.relu(out + _conv_nhwc(x, kd, bd, stride=stride))
+        for si, ((_, stride, dil), blocks) in enumerate(
+                zip(_STAGES, net.layers), start=1):
+            blk = net.block(si, 0)
+            kc1, bc1 = fold(blk.conv1, blk.bn1)
+            kc2, bc2 = fold(blk.conv2, blk.bn2)
+            kc3, bc3 = fold(blk.conv3, blk.bn3)
+            kd, bd = fold(blk.downsample_conv, blk.downsample_bn)
+            out = F.relu(_conv_nhwc(x, kc1, bc1, stride=stride))
+            out = F.relu(_conv_nhwc(out, kc2, bc2, pad=dil, dil=dil))
+            out = _conv_nhwc(out, kc3, bc3)
+            x = F.relu(out + _conv_nhwc(x, kd, bd, stride=stride))
 
-        rest = [net.block(si, bi) for bi in range(1, blocks)]
-        if si <= 3 and rest:
-            st = block_ops.stack_stage_params(rest, dtype)
-            x = block_ops.stage_apply(x, dil, st["w1"], st["b1"], st["w2"],
-                                      st["b2"], st["w3"], st["b3"])
-        else:
-            for blk in rest:
-                kc1, bc1 = fold(blk.conv1, blk.bn1)
-                kc2, bc2 = fold(blk.conv2, blk.bn2)
-                kc3, bc3 = fold(blk.conv3, blk.bn3)
-                out = F.relu(_conv_nhwc(x, kc1, bc1))
-                out = F.relu(_conv_nhwc(out, kc2, bc2, pad=dil, dil=dil))
-                x = F.relu(_conv_nhwc(out, kc3, bc3) + x)
-    return x
+            rest = [net.block(si, bi) for bi in range(1, blocks)]
+            if si <= 3 and rest:
+                st = block_ops.stack_stage_params(rest, dtype)
+                x = block_ops.stage_apply(x, dil, st["w1"], st["b1"], st["w2"],
+                                          st["b2"], st["w3"], st["b3"])
+            else:
+                for blk in rest:
+                    kc1, bc1 = fold(blk.conv1, blk.bn1)
+                    kc2, bc2 = fold(blk.conv2, blk.bn2)
+                    kc3, bc3 = fold(blk.conv3, blk.bn3)
+                    out = F.relu(_conv_nhwc(x, kc1, bc1))
+                    out = F.relu(_conv_nhwc(out, kc2, bc2, pad=dil, dil=dil))
+                    x = F.relu(_conv_nhwc(out, kc3, bc3) + x)
+        return x
 
 
 def init_weights(net: DilatedResNet50, generator: torch.Generator) -> None:

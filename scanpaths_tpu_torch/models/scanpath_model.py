@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.datasets import COCO_OBJECT_NAMES
+from ..utils import tracing
 from . import resnet
 from .components import (
     Conditioner,
@@ -141,67 +142,81 @@ class ScanpathModel(nn.Module):
         or with ``differentiable`` the stock-op
         ``FusedConvLSTMCell.step``, with the histories then written out
         of place (each step's attention saved the earlier versions for
-        backward)."""
+        backward).  Its spans (``utils/tracing.py``): ``decode.hoist``
+        over the step invariants, then one ``decode.step`` a step holding
+        ``.attend`` (every stream's attentions), ``.cell`` and ``.head``
+        (every stream's head and next history entry)."""
         dt, t_len = self.dtype, self.seq_len
         mh, mw = self.map_h, self.map_w
         n = x.shape[0]
-        k, b = hwio(self.sal_conv)
-        visual = F.relu(conv2d(x, k, b, padding=((1, 1), (1, 1)), dtype=dt))
-        vismean = visual.mean(dim=-1)
+        with tracing.span("decode.hoist"):
+            k, b = hwio(self.sal_conv)
+            visual = F.relu(conv2d(x, k, b, padding=((1, 1), (1, 1)),
+                                   dtype=dt))
+            vismean = visual.mean(dim=-1)
 
-        if attention_maps is None:
-            amap0 = torch.zeros((n, mh, mw), dtype=dt, device=x.device)
-        else:
-            amap0 = attention_maps[..., 0].to(dt)
-        entry0 = self._new_stream_entry(amap0, visual, vismean)
-        # every stream starts from the same entry, with its own history
-        entries = [entry0] * len(self.streams)
-        hists = []
-        for _ in self.streams:
-            hist = {key: v.new_zeros((n, t_len + 1) + v.shape[1:])
-                    for key, v in entry0.items()}
-            for key, v in entry0.items():
-                hist[key][:, 0] = v
-            hists.append(hist)
+            if attention_maps is None:
+                amap0 = torch.zeros((n, mh, mw), dtype=dt, device=x.device)
+            else:
+                amap0 = attention_maps[..., 0].to(dt)
+            entry0 = self._new_stream_entry(amap0, visual, vismean)
+            # every stream starts from the same entry, with its own history
+            entries = [entry0] * len(self.streams)
+            hists = []
+            for _ in self.streams:
+                hist = {key: v.new_zeros((n, t_len + 1) + v.shape[1:])
+                        for key, v in entry0.items()}
+                for key, v in entry0.items():
+                    hist[key][:, 0] = v
+                hists.append(hist)
 
-        xg = self.lstm.fold_bias(self.xgates(visual))
-        if differentiable:
-            kh = self.lstm.gates_h.weight.to(dt)
-        else:
-            kh = self.lstm.gate_kernel()
-        h, c = torch.zeros_like(visual), torch.zeros_like(visual)
-        fused = self._fused_heads(task_ids, heads)
-        slots = torch.arange(t_len + 1, device=x.device)
+            xg = self.lstm.fold_bias(self.xgates(visual))
+            if differentiable:
+                kh = self.lstm.gates_h.weight.to(dt)
+            else:
+                kh = self.lstm.gate_kernel()
+            h, c = torch.zeros_like(visual), torch.zeros_like(visual)
+            fused = self._fused_heads(task_ids, heads)
+            slots = torch.arange(t_len + 1, device=x.device)
 
         outs = [{"z": [], "mu": [], "sigma2": [], "amap": []}
                 for _ in self.streams]
         for step in range(t_len):
-            valid = slots <= step
-            signals = []
-            for hist, entry in zip(hists, entries):
-                smem = self.spatial_att(hist["spat"], hist["spat_conv"],
-                                        entry["spat"], valid)
-                cmem = self.semantic_att(hist["sem"], hist["sem_proj"],
-                                         entry["sem"], valid)
-                signals.append((smem.reshape(n, mh, mw), cmem))
-            if differentiable:
-                h, c = self.lstm.step(xg, h, c, signals, kh)
-            else:
-                h, c = self.lstm(xg, h, c, signals, kh)
-            for s, (fu, hist, out) in enumerate(zip(fused, hists, outs)):
-                stop_logit, amap, d = apply_fused_cond_head(h, fu, dt)
-                mu, sigma2 = self.head.finish_duration(d)
-                out["z"].append(torch.cat([stop_logit, amap.reshape(n, -1)],
-                                          dim=-1))
-                out["mu"].append(mu)
-                out["sigma2"].append(sigma2)
-                amap = amap.to(dt)
-                out["amap"].append(amap)
-                entries[s] = self._new_stream_entry(amap, visual, vismean)
-                for key, v in entries[s].items():
+            with tracing.span("decode.step"):
+                with tracing.span("decode.step.attend"):
+                    valid = slots <= step
+                    signals = []
+                    for hist, entry in zip(hists, entries):
+                        smem = self.spatial_att(hist["spat"],
+                                                hist["spat_conv"],
+                                                entry["spat"], valid)
+                        cmem = self.semantic_att(hist["sem"],
+                                                 hist["sem_proj"],
+                                                 entry["sem"], valid)
+                        signals.append((smem.reshape(n, mh, mw), cmem))
+                with tracing.span("decode.step.cell"):
                     if differentiable:
-                        hist[key] = hist[key].clone()
-                    hist[key][:, step + 1] = v
+                        h, c = self.lstm.step(xg, h, c, signals, kh)
+                    else:
+                        h, c = self.lstm(xg, h, c, signals, kh)
+                with tracing.span("decode.step.head"):
+                    for s, (fu, hist, out) in enumerate(zip(fused, hists,
+                                                            outs)):
+                        stop_logit, amap, d = apply_fused_cond_head(h, fu,
+                                                                    dt)
+                        mu, sigma2 = self.head.finish_duration(d)
+                        out["z"].append(torch.cat(
+                            [stop_logit, amap.reshape(n, -1)], dim=-1))
+                        out["mu"].append(mu)
+                        out["sigma2"].append(sigma2)
+                        amap = amap.to(dt)
+                        out["amap"].append(amap)
+                        entries[s] = self._new_stream_entry(amap, visual,
+                                                            vismean)
+                        for key, v in entries[s].items():
+                            if differentiable:
+                                hist[key] = hist[key].clone()
+                            hist[key][:, step + 1] = v
         return [tuple(torch.stack(out[k], dim=1)
                       for k in ("z", "mu", "sigma2", "amap"))
                 for out in outs]
@@ -246,8 +261,10 @@ class ScanpathModel(nn.Module):
         mode inside a traced region splits the exported graph)."""
         x = features if features is not None else resnet.fused_forward(
             self._trunk(), images, self.dtype)
-        return self._eval_outputs(self._decode(
-            x, attention_maps, task_ids, differentiable=False, heads=heads))
+        with tracing.span("decode"):
+            return self._eval_outputs(self._decode(
+                x, attention_maps, task_ids, differentiable=False,
+                heads=heads))
 
     def forward_train(self, images=None, attention_maps=None,
                       task_ids=None, performances=None, train: bool = True,
@@ -270,7 +287,9 @@ class ScanpathModel(nn.Module):
             raise ValueError("the AiR training forward needs performances")
         x = features if features is not None else self._trunk()(
             images, train=train, dtype=self.dtype)
-        outs = self._decode(x, attention_maps, task_ids, differentiable=True)
+        with tracing.span("decode"):
+            outs = self._decode(x, attention_maps, task_ids,
+                                differentiable=True)
         if not train:
             return self._eval_outputs(outs)
         if self.task != "air":

@@ -18,11 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build
-
-# stage_apply calls that ran the CUDA kernel in this process (read by
-# chip_smoke.py); one per stage, whatever its number of blocks
-block_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -134,7 +131,6 @@ def stage_apply_op(x: torch.Tensor, dil: int, w1: torch.Tensor,
 
 @stage_apply_op.register_kernel("cuda")
 def _stage_apply_cuda(x, dil, w1, b1, w2, b2, w3, b3):
-    global block_launches
     n, h, w, c = x.shape
     nb, _, m = w1.shape
     if c % 32 or m % 32:
@@ -163,7 +159,8 @@ def _stage_apply_cuda(x, dil, w1, b1, w2, b2, w3, b3):
                      _DTYPES[x.dtype], stream)
             _build.check("sp_bottleneck", err)
             src = dst
-    block_launches += 1
+    # one a stage, whatever its number of blocks
+    tracing.count("stage_apply.launches")
     return src
 
 

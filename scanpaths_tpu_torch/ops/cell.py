@@ -28,10 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build
-
-# launches of the CUDA kernel in this process (read by chip_smoke.py)
-cell_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the plain version also runs in float64, as a reference for the others
@@ -109,7 +107,6 @@ def cell_step_op(h: torch.Tensor, c: torch.Tensor, xg: torch.Tensor,
 
 @cell_step_op.register_kernel("cuda")
 def _cell_step_cuda(h, c, xg, smaps, kps, kh):
-    global cell_launches
     n, hh, ww, ch = h.shape
     if ch % 32:
         raise ValueError(f"the cell kernel needs C % 32 == 0, got C={ch}")
@@ -124,7 +121,7 @@ def _cell_step_cuda(h, c, xg, smaps, kps, kh):
                  n, hh, ww, ch, smaps.shape[-1], _DTYPES[h.dtype],
                  torch.cuda.current_stream(h.device).cuda_stream)
     _build.check("sp_cell_step", err)
-    cell_launches += 1
+    tracing.count("cell_step.launches")
     return h_out
 
 

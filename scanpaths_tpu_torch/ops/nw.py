@@ -25,10 +25,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build
-
-# launches of the CUDA kernel in this process (read by chip_smoke.py)
-nw_launches = 0
 
 NEG = -3.4e38
 MAX_COLUMNS = 1024   # the kernel keeps at most 32 columns a lane
@@ -161,7 +159,6 @@ def nw_scores_bins(threshold: float, xbin: int, ybin: int,
     (contiguous, Tb <= 1024; any int32 symbols and lengths, the lengths
     clamped to [0, T]) or raises.
     """
-    global nw_launches
     if seq_a.device.type == "cpu":
         return nw_scores_bins_plain(threshold, xbin, ybin, seq_a, len_a,
                                     seq_b, len_b)
@@ -190,5 +187,5 @@ def nw_scores_bins(threshold: float, xbin: int, ybin: int,
         torch._C._cuda_getCurrentRawStream(index))
     if err:
         _build.check("sp_nw_scores_bins", err)
-    nw_launches += 1
+    tracing.count("nw_scores_bins.launches")
     return out

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.grid import FIX_DTYPE, GridSpec
+from ..utils import tracing
 
 
 class SampleOut(NamedTuple):
@@ -123,15 +124,18 @@ def random_sample(probs, mu, sigma2, grid: GridSpec,
     """Sample one scanpath per leading-batch element, drawing the noise
     from ``generator`` (on the device of ``probs``); with ``rollouts``,
     R scanpaths each, every leaf leading with the [R] axis."""
-    gumbel, normal = sample_noise(probs, mu, generator, rollouts)
-    return random_sample_from_noise(probs, mu, sigma2, grid, gumbel, normal)
+    with tracing.span("sample"):
+        gumbel, normal = sample_noise(probs, mu, generator, rollouts)
+        return random_sample_from_noise(probs, mu, sigma2, grid, gumbel,
+                                        normal)
 
 
 def greedy_sample(probs, mu, sigma2, grid: GridSpec) -> SampleOut:
     """Deterministic decode: argmax actions (STOP masked for the first
     ``min_length`` steps) and median LogNormal durations ``exp(mu)``."""
-    actions = torch.argmax(_masked(probs, grid), dim=-1)
-    return _decode(probs, actions, torch.exp(mu), grid)
+    with tracing.span("sample"):
+        actions = torch.argmax(_masked(probs, grid), dim=-1)
+        return _decode(probs, actions, torch.exp(mu), grid)
 
 
 def sample_checksum(sample: SampleOut):

@@ -24,6 +24,7 @@ from ..models.port import (load_reference_state_dict,
                            task_reference_state_dict)
 from ..models.scanpath_model import init_weights, model_from_flags
 from ..ops.sampling import SampleOut, greedy_sample, random_sample
+from ..utils import tracing
 
 
 def checkpoint_path(evaluation_dir: str) -> str:
@@ -86,9 +87,10 @@ class Predictor:
 
     def forward(self, images: np.ndarray, attention_maps=None,
                 task_ids=None) -> dict:
-        return eval_forward(self.model, self.device,
-                            self.args.ablate_attention_info, images,
-                            attention_maps, task_ids)
+        with tracing.span("serve.forward"):
+            return eval_forward(self.model, self.device,
+                                self.args.ablate_attention_info, images,
+                                attention_maps, task_ids)
 
     def decode(self, out: dict, decode: str, num_samples: int,
                stream: str | None = None) -> SampleOut:

@@ -193,12 +193,7 @@ def busy_share(fn, steps: int) -> tuple[float | None, str]:
 def run(device, geo, dtype=torch.float32, batch=8, iters=5):
     """The four variants of ``geo``'s OSIE model (seed weights) at
     ``batch`` in ``dtype``; prints and returns the record."""
-    from ..ops import block, cell, nw
-
-    def launches():
-        return {"cell_step": cell.cell_launches,
-                "stage_apply": block.block_launches,
-                "nw_scores_bins": nw.nw_launches}
+    from ..utils.tracing import launches
     before = launches()
     model = common.osie_model(geo, device, dtype).eval()
     hoisted = hoist(model, common.random_images(batch, geo, device))

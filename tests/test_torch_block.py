@@ -20,6 +20,7 @@ from scanpaths_tpu.models.resnet import Bottleneck as FlaxBottleneck
 from scanpaths_tpu.ops import pallas_block as pb
 from scanpaths_tpu_torch.models.resnet import Bottleneck
 from scanpaths_tpu_torch.ops import block
+from scanpaths_tpu_torch.utils import tracing
 
 TOL = 2e-5
 
@@ -147,9 +148,9 @@ def test_stage_apply_on_cpu_runs_the_plain_version_and_checks_shapes():
              b2=t(rng.standard_normal((1, 32))),
              w3=t(rng.standard_normal((1, 32, 64)) * 0.1),
              b3=t(rng.standard_normal((1, 64))))
-    before = block.block_launches
+    before = tracing.counter("stage_apply.launches")
     y = block.stage_apply(x, 1, **w)
-    assert block.block_launches == before
+    assert tracing.counter("stage_apply.launches") == before
     assert torch.equal(y, block.stage_apply_plain(x, 1, **w))
     with pytest.raises(ValueError, match="w2"):
         block.stage_apply(x, 1, **dict(w, w2=w["w2"][:, :-1]))

@@ -19,6 +19,7 @@ from scanpaths_tpu.models.components import FusedConvLSTMCell as FlaxCell
 from scanpaths_tpu.ops import pallas_cell as pc
 from scanpaths_tpu_torch.models.components import FusedConvLSTMCell
 from scanpaths_tpu_torch.ops import _build, cell
+from scanpaths_tpu_torch.utils import tracing
 
 ATOL, RTOL = 5e-6, 1e-5
 
@@ -76,10 +77,10 @@ def test_cell_step_on_cpu_runs_the_plain_version():
     t = torch.from_numpy
     args = (t(a["xg"]), t(np.stack(a["smaps"], -1)),
             t(np.stack(a["kps"], 1)), t(a["kh"]))
-    before = cell.cell_launches
+    before = tracing.counter("cell_step.launches")
     h1, c1 = cell.cell_step(t(a["h"]), t(a["c"].copy()), *args)
     h2, c2 = cell.cell_step_plain(t(a["h"]), t(a["c"].copy()), *args)
-    assert cell.cell_launches == before
+    assert tracing.counter("cell_step.launches") == before
     assert torch.equal(h1, h2) and torch.equal(c1, c2)
 
 

@@ -34,6 +34,7 @@ from scanpaths_tpu_torch.models.scanpath_model import ScanpathModel, \
 from scanpaths_tpu_torch.ops import block, cell
 from scanpaths_tpu_torch.serve import export as serve_export
 from scanpaths_tpu_torch.serve.predictor import Predictor
+from scanpaths_tpu_torch.utils import tracing
 
 TINY = ["--map_height", "10", "--map_width", "12", "--height", "80",
         "--width", "96", "--max_length", "4", "--backbone_layers",
@@ -432,11 +433,12 @@ def test_bundle_on_the_card_launches_the_kernels(tmp_path):
                                batch=2, map_h=10, map_w=12)
     fn, mf = serve_export.load_bundle(str(tmp_path))
     feed = _feed(args, "osie", 2)
-    cells, stages = cell.cell_launches, block.block_launches
+    before = tracing.launches()
     got = fn(*feed)
     torch.cuda.synchronize()
-    assert cell.cell_launches - cells == 4
-    assert block.block_launches - stages == 3
+    after = tracing.launches()
+    assert after["cell_step"] - before["cell_step"] == 4
+    assert after["stage_apply"] - before["stage_apply"] == 3
     live = serve_export.serving_fn(
         serve_export.ServeModule(pred.model, pred.grid).eval(), mf, "cuda")
     _assert_exact(got, live(*feed))

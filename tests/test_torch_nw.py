@@ -18,6 +18,7 @@ import torch
 from scanpaths_tpu.metrics import jax_metrics as jm
 from scanpaths_tpu.ops.pallas_nw import nw_scores_bins as pallas_nw
 from scanpaths_tpu_torch.ops import nw
+from scanpaths_tpu_torch.utils import tracing
 
 L = 18
 TOL = dict(rtol=1e-6, atol=1e-7, equal_nan=True)
@@ -89,9 +90,9 @@ def test_nw_wrapper_checks_inputs():
         nw.nw_scores_bins(3.5, 16, 12, a.long(), n, a, n)
     with pytest.raises(ValueError, match="must be"):
         nw.nw_scores_bins(3.5, 16, 12, a, n[:1], a, n)
-    before = nw.nw_launches
+    before = tracing.counter("nw_scores_bins.launches")
     nw.nw_scores_bins(3.5, 16, 12, a, n, a, n)     # CPU: plain, no launch
-    assert nw.nw_launches == before
+    assert tracing.counter("nw_scores_bins.launches") == before
 
 
 def test_nw_plain_out_of_table_symbols(rng):
