@@ -33,7 +33,10 @@ Phases, each reporting on its own lines and with its wall time:
    each task), the least time the card could take, the achieved TFLOP/s
    and share of that bound, each launch's tiles and waves over the SMs,
    and beside the cell, as a yardstick the port never calls, cuDNN's
-   gate conv alone;
+   gate conv alone; the head kernel (csrc/head.cu) against its plain
+   version in float64, in float32 and bfloat16, for one stream, AiR's two
+   heads and COCO's per-sample fields, with its time, the plain
+   version's and cuDNN's two convs alone (library_ms) at N = 16 and N = 1;
 5. serving slice, for each task: serves 12 images through
    scanpaths_tpu_torch.cli.predict at full width (ResNet-50, embed 512,
    240x320, T=16, batch 8, weights from a seed), greedy and sampled,
@@ -43,8 +46,9 @@ Phases, each reporting on its own lines and with its wall time:
    exponent, recomputed in float64 from the sampler's mu, sigma2 and
    normal draw, lies past float32's range; so in phase 6) and that
    every forward launched the cell kernel 16 times
-   (with two signal streams for AiR, one otherwise) and the stage
-   kernel 3 times; then runs one forward through the kernels and
+   (with two signal streams for AiR, one otherwise), the stage
+   kernel 3 times and the head kernel 16 times a stream; then runs one
+   forward through the kernels and
    through the plain versions, compares and times them (in float32 also
    each cell call of both against the plain version in float64), and
    splits one forward's device time with torch.profiler;
@@ -64,7 +68,7 @@ Phases, each reporting on its own lines and with its wall time:
    (per stream for AiR), each with its ScanMatch reward grids on the NW
    kernel; for OSIE also two supervised steps in bfloat16 compute with
    float32 parameters; then profiles one more step of each kind.
-   Checks that the cell and stage wrappers refuse a gradient on the
+   Checks that the cell, stage and head wrappers refuse a gradient on the
    card, every loss and metric finite, the launch
    counts (no cell or stage launch; 2 NW launches per SCST step and
    stream), every NW call of the SCST steps against the plain NW
@@ -317,6 +321,20 @@ def stage_work(n, h, w, c, m, nb, dtype):
     return flops, nbytes
 
 
+def head_work(n, h, w, c, dtype):
+    """(operations, bytes) of the composed conditioner+head of one
+    stream: the 5x5 C->2 conv, the 11x11 stride-5 C->1 conv and its
+    border corrections, over h and the float32 fields in, the stop logit,
+    the action map and the duration map out (float32)."""
+    h5, w5 = (h - 5) // 5 + 1, (w - 5) // 5 + 1
+    flops = 2 * c * (n * h * w * 25 * 2 + n * h5 * w5 * 121
+                     + n * (2 * 11 * w5 + 11 * 2 * h5 + 4))
+    nbytes = dtype.itemsize * n * h * w * c \
+        + 4 * ((50 + 121 + 22 + 22 + 4) * c + 2 + h5 * w5 + 1) \
+        + 4 * n * (1 + h * w + h5 * w5)
+    return flops, nbytes
+
+
 def _close(name, got, want, tol, scaled=False):
     """Max abs error of ``got`` against ``want``; raises unless every
     element is within tol + tol * |want|.  ``scaled`` measures the
@@ -391,6 +409,117 @@ def _stage_inputs(n, h, w, c, m, nb, dtype, gen):
                 b3=rnd(nb, c, std=0.1, dt=f32))
 
 
+def _head_inputs(n, h, w, c, dtype, gen, per_sample=False):
+    """h [n, h, w, c] in ``dtype`` and the float32 fields of a composed
+    conditioner+head from weights at their init's scale (one bank entry
+    a sample with ``per_sample``, COCO's)."""
+    from scanpaths_tpu_torch.models import components
+    dev = "cuda"
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+    raw = {"w2": (rnd(1, 1, c, 1, std=c ** -0.5), rnd(1, std=0.1)),
+           "w3": (rnd(1, 1, c, 1, std=c ** -0.5), rnd(1, std=0.1)),
+           "kd": (rnd(7, 7, c, 1, std=(49 * c) ** -0.5), rnd(1, std=0.1))}
+    if per_sample:
+        bank = (rnd(3, 5, 5, c, c, std=(25 * c) ** -0.5),
+                rnd(3, c, std=0.1))
+        fused = components.fuse_bank_heads(
+            *bank, torch.arange(n, device=dev) % 3, raw, h, w)
+    else:
+        fused = components.fuse_cond_head(
+            rnd(5, 5, c, c, std=(25 * c) ** -0.5), rnd(c, std=0.1), raw, h,
+            w)
+    return rnd(n, h, w, c, std=0.5).to(dtype), fused
+
+
+def _head_library(h, fused):
+    """cuDNN's two convs of the plain composition alone (the 5x5 C->2 and
+    the 11x11 stride-5 C->1 over h, channels-last), as the plain version
+    calls them: the yardstick the kernel replaced."""
+    import torch.nn.functional as F
+    x = h.permute(0, 3, 1, 2)
+    k_sa = fused["k_sa"].to(h.dtype).permute(3, 2, 0, 1)
+    keff = fused["keff"].to(h.dtype).permute(3, 2, 0, 1)
+    return (F.conv2d(x, k_sa, padding=2),
+            F.conv2d(F.pad(x, (4, 2, 4, 2)), keff, stride=5))
+
+
+def check_head(head, gen, sms):
+    """The head kernel against its plain version in float64 on the
+    kernel's own inputs (bfloat16 h widened exactly, so both dtypes take
+    F32_TOL, scaled to the output), for one stream, AiR's second head on
+    the same h and COCO's per-sample fields, at the main shape at N = 16
+    and N = 1 and at edge ones; at the main shapes also its time, the
+    plain version's, cuDNN's two convs alone (``library_ms``) and the
+    bound, each from CUDA events around back-to-back calls (at N = 1 the
+    host's submission rate bounds the kernel's), and the kernel's device
+    time under torch.profiler (``device_ms``: its two kernels a call).
+    Returns the summary (N = 16 unprefixed, N = 1 under "n1_", bfloat16
+    under "bf16_")."""
+    from torch.profiler import ProfilerActivity, profile
+    summary = {}
+    cases = [("main N=16", (16, 30, 40, 512)), ("main N=1", (1, 30, 40, 512)),
+             ("ragged", (3, 10, 12, 32)), ("two column tiles", (2, 12, 47, 16)),
+             ("one window", (2, 5, 6, 16))]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        pre = "" if dtype == torch.float32 else "bf16_"
+        for label, shape in cases:
+            errs = []
+            for kind, per_sample, streams in (("S=1", False, 1),
+                                              ("AiR", False, 2),
+                                              ("COCO", True, 1)):
+                h, fused = _head_inputs(*shape, dtype, gen, per_sample)
+                for s in range(streams):
+                    if s:
+                        fused = _head_inputs(*shape, dtype, gen)[1]
+                    got = head.cond_head(h, fused)
+                    want = head.cond_head_plain(
+                        h.double(), {k: v.double() for k, v in fused.items()})
+                    torch.cuda.synchronize()
+                    errs += [_close(f"head {label} {kind} stream {s} {dname} "
+                                    f"{name}", a, b, F32_TOL, scaled=True)
+                             for name, a, b in zip(("stop", "amap", "d"),
+                                                   got, want)]
+            err = max(errs)
+            line = (f"[kernels] head {label} {shape} {dname} (S=1, AiR's two "
+                    f"heads, COCO's per-sample fields): max abs err against "
+                    f"float64 {err:.3g}")
+            if label.startswith("main"):
+                h, fused = _head_inputs(*shape, dtype, gen)
+                iters = 50 if shape[0] == 1 else 20
+                ms, plain_ms = _pair_ms(lambda: head.cond_head(h, fused),
+                                        lambda: head.cond_head_plain(h, fused),
+                                        iters, 5)
+                library_ms, _ = _pair_ms(lambda: _head_library(h, fused),
+                                         lambda: _head_library(h, fused), 5)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(iters):
+                        head.cond_head(h, fused)
+                    torch.cuda.synchronize()
+                device_ms = sum(
+                    v for k, v in _device_events(prof)[0].items()
+                    if "head_part" in k or "head_finish" in k) / iters
+                flops, nbytes = head_work(*shape, dtype)
+                bound_ms, bound_by = _bound(flops, nbytes, PEAK_FLOPS[dtype])
+                blocks, per_sm, _ = head.head_plan(*shape)
+                line += (f"; {ms:.4f} ms (device {device_ms:.4f} ms; plain "
+                         f"{plain_ms:.4f} ms, cuDNN's two convs alone "
+                         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                         f"{bound_by}; device {_rate(flops, device_ms, bound_ms)}"
+                         f"); {blocks} blocks, {per_sm} per SM, "
+                         f"{blocks / (sms * per_sm):.2f} waves")
+                sp = pre + ("" if shape[0] == 16 else "n1_")
+                summary.update({
+                    sp + "max_abs_err": err, sp + "ms": ms,
+                    sp + "device_ms": device_ms, sp + "plain_ms": plain_ms,
+                    sp + "library_ms": library_ms, sp + "bound_ms": bound_ms,
+                    sp + "bound_by": bound_by})
+            print(line, flush=True)
+    return summary
+
+
 def _rate(flops, ms, bound_ms):
     """TFLOP/s achieved and the share of the bound reached."""
     return f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of bound"
@@ -405,10 +534,11 @@ def _waves(label, grid, sms):
 
 
 def check_kernels(cell, block):
-    """The cell and stage kernels; returns {kernel: {"max_abs_err", "ms",
-    "plain_ms", "bound_ms", "bound_by", "bf16_..."}} at the main path's
-    shapes (float32 keys unprefixed, bfloat16 ones prefixed; the cell's
-    two-stream shape, AiR's, also prefixed "s2_")."""
+    """The cell, stage and head kernels; returns {kernel: {"max_abs_err",
+    "ms", "plain_ms", "bound_ms", "bound_by", "bf16_..."}} at the main
+    path's shapes (float32 keys unprefixed, bfloat16 ones prefixed; the
+    cell's two-stream shape, AiR's, also prefixed "s2_"; the head's N = 1
+    "n1_", with cuDNN's convs as "library_ms", :func:`check_head`)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -518,6 +648,8 @@ def check_kernels(cell, block):
             pre + "max_abs_err": max(errs), pre + "ms": total[0],
             pre + "plain_ms": total[1], pre + "bound_ms": bound_ms,
             pre + "bound_by": bound_by})
+    from scanpaths_tpu_torch.ops import head
+    summary["cond_head"] = check_head(head, gen, sms)
     return summary
 
 
@@ -675,10 +807,11 @@ def run_slice(cell, block, predict, tmp, task):
             ("sample", "true")]
     forwards = -(-IMAGES // BATCH)
     want_s = 2 if task == "air" else 1
-    totals = {"cell_step": 0, "stage_apply": 0}
+    totals = {"cell_step": 0, "stage_apply": 0, "cond_head": 0}
     for decode, half in runs:
         step, streams = _counting_streams(cell)
-        tracing.reset_counters("cell_step.launches", "stage_apply.launches")
+        tracing.reset_counters("cell_step.launches", "stage_apply.launches",
+                               "cond_head.launches")
         t0 = time.perf_counter()
         with mock.patch.object(cell, "cell_step", step), \
                 capture_durations() as calls:
@@ -691,24 +824,27 @@ def run_slice(cell, block, predict, tmp, task):
         secs = time.perf_counter() - t0
         dc = tracing.counter("cell_step.launches")
         db = tracing.counter("stage_apply.launches")
+        dh = tracing.counter("cond_head.launches")
         inf = overflowed_durations(
             calls, [min(BATCH, IMAGES - lo) for lo in range(0, IMAGES, BATCH)]
             if decode == "sample" else [], task, True)
         _check_records(records, IMAGES, 10 if decode == "sample" else 1,
                        320, 240, overflow=inf)
         if dc != SEQ * forwards or db != 3 * forwards or \
-                set(streams) != {want_s}:
+                dh != SEQ * forwards * want_s or set(streams) != {want_s}:
             raise AssertionError(
                 f"{task} {decode} half={half}: {forwards} forwards launched "
                 f"the cell kernel {dc} times (streams {sorted(set(streams))})"
-                f" and the stage kernel {db} times (expected "
-                f"{SEQ * forwards} with S={want_s} and {3 * forwards})")
+                f", the stage kernel {db} times and the head kernel {dh} "
+                f"times (expected {SEQ * forwards} with S={want_s}, "
+                f"{3 * forwards} and {SEQ * forwards * want_s})")
         totals["cell_step"] += dc
         totals["stage_apply"] += db
+        totals["cond_head"] += dh
         print(f"[slice] {task} predict --decode {decode} --half_precision "
               f"{half}: {len(records)} records from {IMAGES} images, "
               f"{forwards} forwards, cell launches {dc} (S={want_s}), stage "
-              f"launches {db}, {secs:.2f} s wall (model build and image "
+              f"launches {db}, head launches {dh}, {secs:.2f} s wall (model build and image "
               f"load included); {inf} sampled durations overflow float32 "
               "(each past float32's range by its float64 exponent)",
               flush=True)
@@ -824,21 +960,25 @@ def compare_forward(cell, block, predictor_mod, task):
     from scanpaths_tpu_torch.core.config import parse_opt
     images, maps, tids = forward_inputs(task)
 
+    from scanpaths_tpu_torch.ops import head
+
     def plain():
         return (mock.patch.object(cell, "cell_step", cell.cell_step_plain),
                 mock.patch.object(block, "stage_apply",
-                                  block.stage_apply_plain))
+                                  block.stage_apply_plain),
+                mock.patch.object(head, "cond_head", head.cond_head_plain))
 
     for half, tol in (("false", F32_TOL), ("true", BF16_TOL)):
         args = parse_opt(["--task", task, "--seed", "0",
                           "--half_precision", half])
         pred = predictor_mod.Predictor(args, "cuda")
-        errs = {"cell_step": [], "stage_apply": []}
+        errs = {"cell_step": [], "stage_apply": [], "cond_head": []}
         streams = []
         # float32 only: the kernel's and the plain version's errors against
         # the plain version in float64 on the same inputs, per call
         f64_errs = {"kernel": [], "plain": []}
-        cell_k, stage_k = cell.cell_step, block.stage_apply
+        cell_k, stage_k, head_k = (cell.cell_step, block.stage_apply,
+                                   head.cond_head)
 
         def checked_cell(h, c, *a):
             streams.append(a[1].shape[-1])
@@ -866,14 +1006,24 @@ def compare_forward(cell, block, predictor_mod, task):
                 tol, scaled=True))
             return y_k
 
+        def checked_head(h, fused):
+            got = head_k(h, fused)
+            errs["cond_head"].append(max(
+                _close("head in forward", a, b, tol, scaled=True)
+                for a, b in zip(got, head.cond_head_plain(h, fused))))
+            return got
+
         with mock.patch.object(cell, "cell_step", checked_cell), \
-                mock.patch.object(block, "stage_apply", checked_stage):
+                mock.patch.object(block, "stage_apply", checked_stage), \
+                mock.patch.object(head, "cond_head", checked_head):
             pred.forward(images, maps, tids)
         torch.cuda.synchronize()
-        if len(errs["cell_step"]) != SEQ or len(errs["stage_apply"]) != 3:
+        n_streams = 2 if task == "air" else 1
+        if len(errs["cell_step"]) != SEQ or len(errs["stage_apply"]) != 3 \
+                or len(errs["cond_head"]) != SEQ * n_streams:
             raise AssertionError(f"{task} forward: {len(errs['cell_step'])} "
-                                 f"cell and {len(errs['stage_apply'])} stage "
-                                 "calls")
+                                 f"cell, {len(errs['stage_apply'])} stage "
+                                 f"and {len(errs['cond_head'])} head calls")
         print(f"[slice] {task} forward half={half}: each kernel call checked "
               f"against its plain version on the same inputs: "
               + ", ".join(f"{k} {len(v)} calls, max abs err {max(v):.3g}"
@@ -892,8 +1042,8 @@ def compare_forward(cell, block, predictor_mod, task):
             return pred.forward(x, maps, tids)
 
         def ref(x=images):
-            p1, p2 = plain()
-            with p1, p2:
+            p1, p2, p3 = plain()
+            with p1, p2, p3:
                 return pred.forward(x, maps, tids)
         out_k, out_p = kern(), ref()
         for k in out_k:
@@ -1345,7 +1495,8 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
     forwards = -(-TEST_IMAGES // TEST_BATCH)
     want = {"cell_step": SEQ * forwards, "stage_apply": 3 * forwards,
             "nw_scores_bins": 2 * forwards
-            + 2 * REPEATS * forwards * streams}
+            + 2 * REPEATS * forwards * streams,
+            "cond_head": SEQ * forwards * streams}
     totals = dict.fromkeys(want, 0)
     real_add = device_eval.DeviceSweep.add_batch
     real_add_air = device_eval.DeviceSweep.add_batch_air
@@ -1500,14 +1651,18 @@ def _mib(nbytes):
 
 
 def check_grad_refusal(cell, block):
-    """The cell and stage kernels define no backward: on the card, under
-    grad mode, each wrapper raises for any input that requires grad,
-    before it launches anything."""
+    """The cell, stage and head kernels define no backward: on the card,
+    under grad mode, each wrapper raises for any input that requires
+    grad, before it launches anything."""
+    from scanpaths_tpu_torch.ops import head
     gen = torch.Generator(device="cuda").manual_seed(2)
+    h, fused = _head_inputs(1, 10, 12, 32, torch.float32, gen)
     cases = (("cell_step", cell.cell_step,
               _cell_inputs(1, 4, 5, 64, 1, torch.float32, gen)),
              ("stage_apply", lambda **kw: block.stage_apply(dil=1, **kw),
-              _stage_inputs(1, 4, 5, 64, 32, 1, torch.float32, gen)))
+              _stage_inputs(1, 4, 5, 64, 32, 1, torch.float32, gen)),
+             ("cond_head", lambda h, **kw: head.cond_head(h, kw),
+              dict(fused, h=h)))
     for name, fn, args in cases:
         for k in args:
             kw = dict(args, **{k: args[k].clone().requires_grad_(True)})
@@ -1519,8 +1674,8 @@ def check_grad_refusal(cell, block):
                 raise
             raise AssertionError(f"{name} ran under grad mode with {k} "
                                  "requiring grad")
-    print("[train] cell_step and stage_apply raise on the card under grad "
-          "mode for each input that requires grad", flush=True)
+    print("[train] cell_step, stage_apply and cond_head raise on the card "
+          "under grad mode for each input that requires grad", flush=True)
 
 
 def run_train_slice(cell, block, nw, argv):
@@ -1636,7 +1791,7 @@ def run_train_slice(cell, block, nw, argv):
     got = tracing.launches()
     want = {"cell_step": 0, "stage_apply": 0,
             "nw_scores_bins": TRAIN_STEPS * streams * 2
-            + (TRAIN_STEPS * 2 if rl_cfg.apply_cd else 0)}
+            + (TRAIN_STEPS * 2 if rl_cfg.apply_cd else 0), "cond_head": 0}
     if got != want:
         raise AssertionError(f"{task} training: launches {got}, expected "
                              f"{want}")
@@ -2278,8 +2433,8 @@ def print_trainer_records(task, label, records, rollouts, nw):
 
 def check_trainer_launches(task, label, records, n_streams, repeats,
                            val_forwards, rl_steps, apply_cd):
-    """No cell or stage launch in a training step; 16 cell and 3 stage
-    launches per validation forward; NW: 2 per SCST step and stream (2
+    """No cell, stage or head launch in a training step; 16 cell, 3
+    stage and 16 head launches a stream per validation forward; NW: 2 per SCST step and stream (2
     more per step for AiR's CD term), 2 per human-baseline batch, 2 per
     sweep batch, repeat and stream."""
     for i, rec in enumerate(records):
@@ -2291,16 +2446,18 @@ def check_trainer_launches(task, label, records, n_streams, repeats,
                 raise AssertionError(f"{where}: {rec['stats']['steps']} "
                                      f"SCST steps, expected {rl_steps}")
             _expect(where, rec["launches"], {"cell_step": 0, "stage_apply": 0,
-                                             "nw_scores_bins": nw_want})
+                                             "nw_scores_bins": nw_want,
+                                             "cond_head": 0})
         elif rec["kind"] == "validation":
             _expect(where, rec["launches"], {
                 "cell_step": SEQ * val_forwards,
                 "stage_apply": 3 * val_forwards,
-                "nw_scores_bins": 2 * repeats * val_forwards * n_streams})
+                "nw_scores_bins": 2 * repeats * val_forwards * n_streams,
+                "cond_head": SEQ * val_forwards * n_streams})
         elif rec["kind"] == "human":
             _expect(where, rec["launches"], {
                 "cell_step": 0, "stage_apply": 0,
-                "nw_scores_bins": 2 * val_forwards})
+                "nw_scores_bins": 2 * val_forwards, "cond_head": 0})
 
 
 def run_trainer_slice(cell, block, nw, argv, keep=None):
@@ -2332,7 +2489,7 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
     rl_steps = TRAINER_IMAGES // max(args.batch // 4, 1)
     val_forwards = -(-VALIDATION_IMAGES // args.batch)
     log_root = argv[argv.index("--log_root") + 1]
-    total = dict.fromkeys(("cell_step", "stage_apply", "nw_scores_bins"), 0)
+    total = dict.fromkeys(tracing.KERNELS, 0)
 
     def run(label, run_argv):
         t0 = time.perf_counter()
@@ -2403,7 +2560,8 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
     _expect(f"{task} test on the run", got, {
         "cell_step": SEQ * val_forwards, "stage_apply": 3 * val_forwards,
         "nw_scores_bins": 2 * val_forwards
-        + 2 * REPEATS * val_forwards * streams})
+        + 2 * REPEATS * val_forwards * streams,
+        "cond_head": SEQ * val_forwards * streams})
     out = "validation" if task == "coco" else "test"
     with open(os.path.join(log_dir, f"{out}_predicts.json")) as f:
         records = json.load(f)
@@ -2757,7 +2915,8 @@ def check_joint_records(records, nw, repeats):
         if rec["kind"] == "step":
             _expect(where, rec["launches"], {
                 "cell_step": 0, "stage_apply": 0,
-                "nw_scores_bins": 2 * streams if rec["rl"] else 0})
+                "nw_scores_bins": 2 * streams if rec["rl"] else 0,
+                "cond_head": 0})
             for j, (_, _, a, out) in enumerate(rec["nw_calls"]):
                 _exact(f"{where} SCST NW call {j + 1}", out,
                        nw.nw_scores_bins_plain(*a))
@@ -2766,11 +2925,12 @@ def check_joint_records(records, nw, repeats):
             fw = rec["forwards"]
             _expect(where, rec["launches"], {
                 "cell_step": SEQ * fw, "stage_apply": 3 * fw,
-                "nw_scores_bins": 2 * repeats * fw * streams})
+                "nw_scores_bins": 2 * repeats * fw * streams,
+                "cond_head": SEQ * fw * streams})
         elif rec["kind"] == "human":
             _expect(where, rec["launches"], {
                 "cell_step": 0, "stage_apply": 0,
-                "nw_scores_bins": 2 * rec["forwards"]})
+                "nw_scores_bins": 2 * rec["forwards"], "cond_head": 0})
     return checked
 
 
@@ -2975,7 +3135,8 @@ def run_joint_slice(cell, block, nw, tmp):
         _check_tree(metrics)
         _expect(f"{task} test on the joint run", got, {
             "cell_step": SEQ * fw, "stage_apply": 3 * fw,
-            "nw_scores_bins": 2 * fw + 2 * REPEATS * fw * streams})
+            "nw_scores_bins": 2 * fw + 2 * REPEATS * fw * streams,
+            "cond_head": SEQ * fw * streams})
         out = "validation" if task == "coco" else "test"
         with open(os.path.join(log_dir, f"{out}_predicts.json")) as f:
             n_records = len(json.load(f))
@@ -2991,7 +3152,8 @@ def run_joint_slice(cell, block, nw, tmp):
 
     # serving the run's COCO head
     img_dir = serving_images(tmp)
-    tracing.reset_counters("cell_step.launches", "stage_apply.launches")
+    tracing.reset_counters("cell_step.launches", "stage_apply.launches",
+                           "cond_head.launches")
     t0 = time.perf_counter()
     with mock.patch.object(predictor, "checkpoint_path", checkpoint_path), \
             capture_durations() as calls:
@@ -3011,10 +3173,11 @@ def run_joint_slice(cell, block, nw, tmp):
         calls, [min(BATCH, IMAGES - lo) for lo in range(0, IMAGES, BATCH)],
         "coco", True)
     _check_records(records, IMAGES, 10, 320, 240, overflow=inf)
-    got = {"cell_step": tracing.counter("cell_step.launches"),
-           "stage_apply": tracing.counter("stage_apply.launches")}
+    got = {k: tracing.counter(f"{k}.launches")
+           for k in ("cell_step", "stage_apply", "cond_head")}
     _expect("predict on the joint run", got, {
-        "cell_step": SEQ * forwards, "stage_apply": 3 * forwards})
+        "cell_step": SEQ * forwards, "stage_apply": 3 * forwards,
+        "cond_head": SEQ * forwards})
     for k in got:
         total[k] += got[k]
     print(f"[joint] cli/predict.py --task coco --evaluation_dir <the joint "
@@ -3160,7 +3323,7 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
         fn, mf = real_load(path, device)
         loaded[path] = (fn, mf, time.perf_counter() - t1)
         return fn, mf
-    total = {"cell_step": 0, "stage_apply": 0}
+    total = {"cell_step": 0, "stage_apply": 0, "cond_head": 0}
     calls = -(-IMAGES // BATCH)
     serving = {task: task for task in TASKS}
     serving.update(osie_sample="osie", osie_bf16="osie", osie_sym="osie",
@@ -3169,10 +3332,12 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
 
     def serve(name, d, secs, wall, mb):
         """cli/predict.py --bundle on the served images; checks the
-        records and the launches (16 cell, cell ops with S streams, and 3
-        stage a call)."""
+        records and the launches (16 cell, cell ops with S streams, 3
+        stage and 16 S head a call)."""
         task = serving[name]
-        tracing.reset_counters("cell_step.launches", "stage_apply.launches")
+        want_s = 2 if task == "air" else 1
+        tracing.reset_counters("cell_step.launches", "stage_apply.launches",
+                               "cond_head.launches")
         with mock.patch.object(predict, "load_bundle", load):
             records = predict.main(
                 ["--task", task, "--bundle", d, "--predict_images", img_dir,
@@ -3181,12 +3346,11 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
                 + serving_inputs(tmp, task))
         torch.cuda.synchronize()
         fn, mf, load_s = loaded[d]
-        got = {"cell_step": tracing.counter("cell_step.launches"),
-               "stage_apply": tracing.counter("stage_apply.launches")}
+        got = {k: tracing.counter(f"{k}.launches") for k in total}
         _expect(f"bundle {name}", got, {"cell_step": SEQ * calls,
-                                        "stage_apply": 3 * calls})
+                                        "stage_apply": 3 * calls,
+                                        "cond_head": SEQ * calls * want_s})
         streams = _program_streams(fn)
-        want_s = 2 if task == "air" else 1
         if streams != [want_s] * SEQ:
             raise AssertionError(f"bundle {name}: cell ops with streams "
                                  f"{streams}, expected {SEQ} with S={want_s}")
@@ -3233,14 +3397,15 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
     def counted(label, calls, run):
         """``run()``'s bundle calls, with their launches checked and
         added to the phase's."""
-        tracing.reset_counters("cell_step.launches", "stage_apply.launches")
+        tracing.reset_counters("cell_step.launches", "stage_apply.launches",
+                               "cond_head.launches")
         out = run()
         torch.cuda.synchronize()
-        _expect(label, {k: tracing.launches()[k]
-                        for k in ("cell_step", "stage_apply")},
-                {"cell_step": SEQ * calls, "stage_apply": 3 * calls})
-        total["cell_step"] += SEQ * calls
-        total["stage_apply"] += 3 * calls
+        want = {"cell_step": SEQ * calls, "stage_apply": 3 * calls,
+                "cond_head": SEQ * calls}
+        _expect(label, {k: tracing.launches()[k] for k in want}, want)
+        for k, v in want.items():
+            total[k] += v
         return out
     pred = predictor_mod.Predictor(parse_opt(flags), DEVICE)
 
@@ -3293,14 +3458,13 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
             del pred
             pred = predictor_mod.Predictor(parse_opt(
                 flags + ["--half_precision", half]), DEVICE)
-        kernels = tracing.counter("cell_step.launches"), \
-            tracing.counter("stage_apply.launches")
+        names = ("cell_step", "stage_apply", "cond_head")
+        kernels = [tracing.counter(f"{k}.launches") for k in names]
         bundle_ms, live_ms = _pair_ms(lambda: fn(images),
                                       lambda: live(pred, images), TIME_ITERS)
         n = 2 + 4 * TIME_ITERS
-        if (tracing.counter("cell_step.launches") - kernels[0],
-                tracing.counter("stage_apply.launches") - kernels[1]) \
-                != (n * SEQ, n * 3):
+        if [tracing.counter(f"{k}.launches") - c
+                for k, c in zip(names, kernels)] != [n * SEQ, n * 3, n * SEQ]:
             raise AssertionError("timed calls: unexpected launches")
         dtype = "bfloat16" if half == "true" else "float32"
         print(f"[export] osie {dtype} batch {BATCH}: bundle {bundle_ms:.2f} "
@@ -3741,7 +3905,7 @@ def check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8):
     root = os.path.join(tmp, "dp_steps")
     os.makedirs(root)
     argv = {t: test_argv[t] for t in DP_TASKS}
-    total = dict.fromkeys(("cell_step", "stage_apply", "nw_scores_bins"), 0)
+    total = dict.fromkeys(tracing.KERNELS, 0)
 
     def add(counts):
         for k in total:
@@ -3795,7 +3959,8 @@ def check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8):
             _expect(f"{task} steps, world {r['world']} (model parallel "
                     f"{r['model_parallel']}) rank {r['rank']}",
                     got["launches"], {"cell_step": 0, "stage_apply": 0,
-                                      "nw_scores_bins": nw_want})
+                                      "nw_scores_bins": nw_want,
+                                      "cond_head": 0})
             if got["nw_checked"] != nw_want:
                 raise AssertionError(f"{task}: {got['nw_checked']} NW calls "
                                      "checked")
@@ -3875,7 +4040,8 @@ def check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8):
             _expect(f"{task} eval forward, model parallel "
                     f"{r['model_parallel']} rank {r['rank']}",
                     fw["launches"], {"cell_step": SEQ, "stage_apply": 3,
-                                     "nw_scores_bins": 0})
+                                     "nw_scores_bins": 0,
+                                     "cond_head": SEQ * streams})
         print(f"[dp] {task} TP eval forward (1 x 2 mesh, the sliced "
               f"kernels gathered whole) of the first batch against world "
               f"1's: max abs err " + ", ".join(f"{k} {v:.3g}"
@@ -3934,7 +4100,8 @@ def check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8):
                         "cell_step": SEQ * forwards,
                         "stage_apply": 3 * forwards,
                         "nw_scores_bins": (2 + 2 * REPEATS * streams)
-                        * forwards})
+                        * forwards,
+                        "cond_head": SEQ * forwards * streams})
         t0, t1 = (r["tests"][i] for r in wt)
         if t1["records"] or len(t0["records"]) != len(ref["records"]):
             raise AssertionError(f"{task} records: rank 0 "
@@ -4079,7 +4246,7 @@ def check_dp_run(tmp, phase8):
         raise AssertionError(f"data-parallel supervised losses: {bad}")
     shutil.rmtree(os.path.dirname(log_root))
     shutil.rmtree(out)
-    total = dict.fromkeys(("cell_step", "stage_apply", "nw_scores_bins"), 0)
+    total = dict.fromkeys(tracing.KERNELS, 0)
     for r in ranks:
         for k in total:
             total[k] += r["launches"][k]
@@ -4175,7 +4342,7 @@ def check_entry(cell, block, nw):
     driven = _minus(tracing.launches(), first)
     got = _minus(tracing.launches(), before)
     _expect("entry() forward", got, {"cell_step": SEQ, "stage_apply": 3,
-                                     "nw_scores_bins": 0})
+                                     "nw_scores_bins": 0, "cond_head": SEQ})
     n, mh, mw = images.shape[0], images.shape[1] // 8, images.shape[2] // 8
     want = {"all_actions_prob": (n, SEQ, 1 + mh * mw),
             "log_normal_mu": (n, SEQ), "log_normal_sigma2": (n, SEQ),
@@ -4225,7 +4392,8 @@ def check_dryrun(n):
         raise AssertionError(f"dryrun_multichip({n}): {out[-3000:]}")
     got = json.loads(m.group(1))
     _expect(f"dryrun_multichip({n})", got, {
-        "cell_step": 0, "stage_apply": 0, "nw_scores_bins": 2 * n})
+        "cell_step": 0, "stage_apply": 0, "nw_scores_bins": 2 * n,
+        "cond_head": 0})
     return got
 
 
@@ -4337,12 +4505,14 @@ def check_profile_scan(smi):
                                                           "bfloat16"]:
         raise AssertionError(f"profile_scan exited {proc.returncode}:\n"
                              f"{out[-4000:]}")
-    total = {"cell_step": 0, "stage_apply": 0, "nw_scores_bins": 0}
+    total = dict.fromkeys(tracing.KERNELS, 0)
     for rec in recs:
         loops = len(profile_scan.VARIANTS) * rec["loops_per_variant"]
+        # the head runs in two of the variants, cell+head and full
         _expect(f"profile_scan {rec['dtype']}", rec["launches"], {
             "cell_step": SEQ * loops, "stage_apply": 3,
-            "nw_scores_bins": 0})
+            "nw_scores_bins": 0,
+            "cond_head": 2 * SEQ * rec["loops_per_variant"]})
         bad = {k: v for k, v in rec["trace"].items() if v != "ok"}
         if bad:
             raise AssertionError(f"profile_scan {rec['dtype']}: the trace "
@@ -4363,7 +4533,7 @@ def run_entry_slice(cell, block, nw, tmp, smi):
     """Phase 13: check_entry, check_dryrun, check_dist_smoke,
     check_real_data and check_profile_scan in turn, each with its wall
     time.  Returns the kernels' launches of the phase."""
-    total = {"cell_step": 0, "stage_apply": 0, "nw_scores_bins": 0}
+    total = dict.fromkeys(tracing.KERNELS, 0)
     for label, run in (
             ("entry()", lambda: check_entry(cell, block, nw)),
             (f"dryrun_multichip({DRYRUN_RANKS})",
@@ -4466,7 +4636,7 @@ def main():
     if log.exists():
         print_ptxas(log.read_text())
 
-    launches = {"cell_step": 0, "stage_apply": 0, "nw_scores_bins": 0}
+    launches = dict.fromkeys(tracing.KERNELS, 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -4551,12 +4721,15 @@ def main():
                "stage_apply": ("scanpaths_tpu_torch/csrc/block.cu",
                                "scanpaths_tpu/ops/pallas_block.py:197"),
                "nw_scores_bins": ("scanpaths_tpu_torch/csrc/nw.cu",
-                                  "scanpaths_tpu/ops/pallas_nw.py:111")}
-    # no single PyTorch call computes any of the three functions (a
-    # fused ConvLSTM step, a stage of bottleneck blocks, an NW alignment)
+                                  "scanpaths_tpu/ops/pallas_nw.py:111"),
+               "cond_head": ("scanpaths_tpu_torch/csrc/head.cu", None)}
+    # no single PyTorch call computes any of the first three functions (a
+    # fused ConvLSTM step, a stage of bottleneck blocks, an NW alignment);
+    # the head's library_ms is cuDNN's two convs it replaced
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1], launches=launches[name],
-                    library_ms=None, **summary[name]) for name in sources]
+                    **{"library_ms": None, **summary[name]})
+               for name in sources]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cell as cell_ops
+from ..ops import head as head_ops
 from ..train import mesh
 
 NEG_INF = -1e9
@@ -439,55 +440,21 @@ def compose_bank_heads(bank_k, bank_b, head_raw: dict, map_h: int,
     return {key: torch.stack([p[key] for p in parts]) for key in parts[0]}
 
 
-def _sample_conv(x, kernel, strides=(1, 1), padding=((0, 0), (0, 0)),
-                 dtype=None):
-    """:func:`conv2d` with one HWIO kernel per sample (``kernel`` [N, kh,
-    kw, C, O]), no bias: one grouped conv with the batch folded into the
-    channels (groups = N)."""
-    n, hh, ww, c = x.shape
-    o = kernel.shape[-1]
-    if dtype is not None:
-        x, kernel = x.to(dtype), kernel.to(dtype)
-    (pt, pb), (pl, pr) = padding
-    xin = F.pad(x.permute(0, 3, 1, 2).reshape(1, n * c, hh, ww),
-                (pl, pr, pt, pb))
-    k = kernel.permute(0, 4, 3, 1, 2).reshape(n * o, c, *kernel.shape[1:3])
-    out = F.conv2d(xin, k, stride=strides, groups=n)
-    return out.reshape(n, o, *out.shape[2:]).permute(0, 2, 3, 1)
-
-
-def apply_fused_cond_head(h, fused: dict, dtype):
+def apply_fused_cond_head(h, fused: dict, dtype,
+                          differentiable: bool = False):
     """Apply the composed conditioner+head to the ConvLSTM state ``h``
-    [N, H, W, C]: one :func:`fuse_cond_head` dict for the whole batch, or
-    one per sample with a leading [N] axis on every field
-    (:func:`fuse_bank_heads`).  Returns (stop_logit [N, 1], amap [N, H,
-    W], drt_raw [N, h5, w5]) in float32 (float64 when ``h`` is), drt_raw
-    being the pre-relu drt_layer_1 output for
-    :meth:`PredictHead.finish_duration`."""
-    n = h.shape[0]
-    hi_t = torch.promote_types(torch.float32, h.dtype)
-    hc = h.to(dtype)
-    per_sample = fused["k_sa"].dim() == 5
-    conv = _sample_conv if per_sample else conv2d
-    ns = "n" if per_sample else ""
-    sa = conv(hc, fused["k_sa"], padding=((2, 2), (2, 2)), dtype=dtype)
-    sa = sa.to(hi_t) + fused["b_sa"][..., None, None, :]
-    main = conv(hc, fused["keff"], strides=(5, 5),
-                padding=((4, 2), (4, 2)), dtype=dtype)[..., 0].to(hi_t)
-    stop_logit = sa[..., 0].reshape(n, -1).mean(dim=-1, keepdim=True)
-    amap = F.relu(sa[..., 1])
-    # the corrections run on thin border strips, in full precision: the
-    # 1-wide strided convs over the 2-row / 2-column strips, as windows
-    # (unfold, 11 wide, stride 5, zero padding 4 / 2) contracted in one
-    # einsum each
-    h32 = h.to(hi_t)
-    rows = F.pad(h32[:, :2], (0, 0, 4, 2)).unfold(2, 11, 5)  # [N,2,w5,C,11]
-    crow = torch.einsum(f"nyjcq,{ns}yqc->nj", rows, fused["wr"].to(hi_t))
-    cols = F.pad(h32[:, :, :2], (0, 0, 0, 0, 4, 2)).unfold(1, 11, 5)
-    ccol = torch.einsum(f"nixcp,{ns}pxc->ni", cols, fused["wc"].to(hi_t))
-    ccorn = torch.einsum(f"nyxc,{ns}yxc->n", h32[:, :2, :2], fused["wcc"])
-    d = main + fused["b1map"] + fused["bd"][..., None, None]
-    d[:, 0, :] -= crow
-    d[:, :, 0] -= ccol
-    d[:, 0, 0] += ccorn
-    return stop_logit, amap, d
+    [N, H, W, C], cast to ``dtype``: one :func:`fuse_cond_head` dict for
+    the whole batch, or one per sample with a leading [N] axis on every
+    field (:func:`fuse_bank_heads`).  Returns (stop_logit [N, 1], amap
+    [N, H, W], drt_raw [N, h5, w5]) in float32 (float64 when ``h`` is),
+    drt_raw being the pre-relu drt_layer_1 output for
+    :meth:`PredictHead.finish_duration`.
+
+    ``ops.head.cond_head`` computes it: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU one.  ``differentiable`` (the
+    training forward) takes the plain version, in stock ops, on either:
+    the kernel has no backward."""
+    h = h.to(dtype)
+    if differentiable:
+        return head_ops.cond_head_plain(h, fused)
+    return head_ops.cond_head(h, fused)

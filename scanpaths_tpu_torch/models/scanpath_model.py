@@ -138,9 +138,10 @@ class ScanpathModel(nn.Module):
                 heads=None):
         """The decoder from the trunk's grid ``x`` [N, H, W, 2048]: one
         (z [N, T, A] logits, mu, sigma2 [N, T], amap [N, T, H, W]) per
-        stream, all float32.  Each step's cell is ``ops.cell.cell_step``,
-        or with ``differentiable`` the stock-op
-        ``FusedConvLSTMCell.step``, with the histories then written out
+        stream, all float32.  Each step's cell is ``ops.cell.cell_step``
+        and each stream's head ``ops.head.cond_head``, or with
+        ``differentiable`` the stock-op ``FusedConvLSTMCell.step`` and
+        ``ops.head.cond_head_plain``, with the histories then written out
         of place (each step's attention saved the earlier versions for
         backward).  Its spans (``utils/tracing.py``): ``decode.hoist``
         over the step invariants, then one ``decode.step`` a step holding
@@ -202,8 +203,8 @@ class ScanpathModel(nn.Module):
                 with tracing.span("decode.step.head"):
                     for s, (fu, hist, out) in enumerate(zip(fused, hists,
                                                             outs)):
-                        stop_logit, amap, d = apply_fused_cond_head(h, fu,
-                                                                    dt)
+                        stop_logit, amap, d = apply_fused_cond_head(
+                            h, fu, dt, differentiable)
                         mu, sigma2 = self.head.finish_duration(d)
                         out["z"].append(torch.cat(
                             [stop_logit, amap.reshape(n, -1)], dim=-1))

@@ -13,7 +13,9 @@ history attention:
               kernel's taps) from fixed memories, the first history
               entry's spatial and semantic features
   cell+head   + the fused conditioner+head and the duration tail
-              (``apply_fused_cond_head``, ``head.finish_duration``)
+              (``apply_fused_cond_head``, which on the card is the head
+              kernel, ``ops.head.cond_head`` -> ``csrc/head.cu``, and
+              ``head.finish_duration``)
   full        the real step: ``spatial_att`` and ``semantic_att`` over
               the history, the cell, the head, ``_new_stream_entry`` and
               the history writes, the ops of ``ScanpathModel._decode``
@@ -32,8 +34,11 @@ loop shows as idle, not as work.  The trace is checked against the
 loop's known work first (:func:`trace_problem`: a cell-kernel event a
 step, the summed device time within the span); a trace that fails the
 check gives no share (null, with the reason under ``trace``), and off
-the card nothing is traced (both null).  The record's ``launches`` are
-the kernels' launch counts over the whole run.
+the card nothing is traced (both null).  The same trace gives the head
+kernel's device ms a step (``head_kernel_ms_per_step``: its two
+kernels, :data:`HEAD_KERNELS`, summed; 0 in the variants without the
+head, null off the card).  The record's ``launches`` are the kernels'
+launch counts over the whole run.
 
     python -m scanpaths_tpu_torch.tools.profile_scan [--batch 8]
         [--dtype float32|bfloat16|both] [--iters 5]
@@ -57,6 +62,8 @@ VARIANTS = ("cell", "cell+sig", "cell+head", "full")
 WARMUP = 2
 # the cell kernels' names in a trace (csrc/cell.cu)
 CELL_KERNELS = ("cell_f32", "cell_bf16")
+# the head kernel's two kernels in a trace (csrc/head.cu)
+HEAD_KERNELS = ("head_part", "head_finish")
 # the device events' summed time may pass the span between the CUDA
 # events by this share (the two clocks' agreement) and no more
 SPAN_SLACK = 0.01
@@ -158,12 +165,13 @@ def trace_problem(spans_us, cell_events: int, steps: int,
     return None
 
 
-def busy_share(fn, steps: int) -> tuple[float | None, str]:
+def busy_share(fn, steps: int) -> tuple[float | None, str, float | None]:
     """The device's busy share of one call of ``fn`` on the card, a loop
     of ``steps`` cell steps: the union of the kernels' device intervals
     under torch.profiler over the span between CUDA events around the
-    call.  Returns (the share, "ok"), or (None, the reason) when the
-    trace fails :func:`trace_problem`."""
+    call.  Returns (the share, "ok", the head kernel's device ms a step),
+    or (None, the reason, None) when the trace fails
+    :func:`trace_problem`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
@@ -182,12 +190,14 @@ def busy_share(fn, steps: int) -> tuple[float | None, str]:
         spans, sum(any(k in e.name for k in CELL_KERNELS) for e in events),
         steps, span_ms)
     if problem is not None:
-        return None, problem
+        return None, problem, None
     busy_us, reach = 0.0, -math.inf
     for lo, hi in spans:
         busy_us += max(0.0, hi - max(lo, reach))
         reach = max(reach, hi)
-    return busy_us / 1e3 / span_ms, "ok"
+    head_us = sum(e.time_range.end - e.time_range.start for e in events
+                  if any(k in e.name for k in HEAD_KERNELS))
+    return busy_us / 1e3 / span_ms, "ok", head_us / 1e3 / steps
 
 
 def run(device, geo, dtype=torch.float32, batch=8, iters=5):
@@ -198,15 +208,15 @@ def run(device, geo, dtype=torch.float32, batch=8, iters=5):
     model = common.osie_model(geo, device, dtype).eval()
     hoisted = hoist(model, common.random_images(batch, geo, device))
     on_card = torch.device(device).type == "cuda"
-    ms, busy, trace = {}, {}, {}
+    ms, busy, trace, head_ms = {}, {}, {}, {}
     for kind in VARIANTS:
         def loop(kind=kind):
             outs, h, _ = scan(model, kind, hoisted)
             return checksum(outs, h)
         ms[kind] = common.timed(loop, iters, warmup=WARMUP,
                                 reduce=np.median) * 1e3 / model.seq_len
-        busy[kind], trace[kind] = busy_share(loop, model.seq_len) \
-            if on_card else (None, None)
+        busy[kind], trace[kind], head_ms[kind] = busy_share(
+            loop, model.seq_len) if on_card else (None, None, None)
     return common.emit({
         "metric": "decode_step_split", "batch": batch, "t": model.seq_len,
         "dtype": str(dtype)[6:], "device": str(device),
@@ -215,6 +225,7 @@ def run(device, geo, dtype=torch.float32, batch=8, iters=5):
         "head_ms_per_step": ms["cell+head"] - ms["cell+sig"],
         "history_ms_per_step": ms["full"] - ms["cell+head"],
         "busy_share": busy, "trace": trace,
+        "head_kernel_ms_per_step": head_ms,
         "loops_per_variant": WARMUP + iters + int(on_card),
         "launches": {k: v - before[k] for k, v in launches().items()}})
 

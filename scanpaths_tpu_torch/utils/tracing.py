@@ -22,9 +22,9 @@ layer by layer, and how often each kernel ran.
 * :func:`count` always counts (an integer add); :func:`counter` and
   :func:`counters` read, :func:`reset_counters` zeroes.  The kernels'
   wrappers count their launches as ``cell_step.launches``,
-  ``stage_apply.launches`` and ``nw_scores_bins.launches``
-  (:func:`launches` reads the three), at Python dispatch: a CUDA
-  graph's replay does not pass through them.
+  ``stage_apply.launches``, ``nw_scores_bins.launches`` and
+  ``cond_head.launches`` (:func:`launches` reads the four), at Python
+  dispatch: a CUDA graph's replay does not pass through them.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from torch.autograd import profiler as _profiler
 
 CAPACITY = 1 << 16
 # the kernels whose wrappers count their launches, as "<kernel>.launches"
-KERNELS = ("cell_step", "stage_apply", "nw_scores_bins")
+KERNELS = ("cell_step", "stage_apply", "nw_scores_bins", "cond_head")
 
 
 @dataclasses.dataclass(frozen=True)

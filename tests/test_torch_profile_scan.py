@@ -72,10 +72,12 @@ def test_variants_print_finite_lines():
             assert math.isfinite(rec[f"{k}_ms_per_step"])
         assert rec["busy_share"] == dict.fromkeys(profile_scan.VARIANTS)
         assert rec["trace"] == dict.fromkeys(profile_scan.VARIANTS)
+        assert rec["head_kernel_ms_per_step"] == dict.fromkeys(
+            profile_scan.VARIANTS)
         assert rec["loops_per_variant"] == profile_scan.WARMUP + 1
         # the plain versions run on the CPU: no kernel launches
         assert rec["launches"] == {"cell_step": 0, "stage_apply": 0,
-                                   "nw_scores_bins": 0}
+                                   "nw_scores_bins": 0, "cond_head": 0}
 
 
 @pytest.mark.parametrize("case", ["whole", "lost_events", "past_span"])
