@@ -30,6 +30,7 @@ from torch import nn
 from ..ops import cell as cell_ops
 from ..ops import head as head_ops
 from ..train import mesh
+from ..utils import tracing
 
 NEG_INF = -1e9
 
@@ -359,7 +360,10 @@ def fuse_cond_head(k1, b1, head_raw: dict, map_h: int, map_w: int) -> dict:
     """Compose a [5, 5, C, C] HWIO conditioner kernel/bias with the
     head's three C->1 convs (``PredictHead.raw``).  All maths in the
     parameters' dtype.  Returns the tensors
-    :func:`apply_fused_cond_head` consumes."""
+    :func:`apply_fused_cond_head` consumes.  While spans are on
+    (``utils/tracing.py``) each call adds one to ``cond_head.composed``."""
+    if tracing.active():
+        tracing.count("cond_head.composed")
     c = k1.shape[2]
     w2k, w2b = head_raw["w2"]
     w3k, w3b = head_raw["w3"]

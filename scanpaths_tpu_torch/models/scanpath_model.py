@@ -144,9 +144,11 @@ class ScanpathModel(nn.Module):
         ``ops.head.cond_head_plain``, with the histories then written out
         of place (each step's attention saved the earlier versions for
         backward).  Its spans (``utils/tracing.py``): ``decode.hoist``
-        over the step invariants, then one ``decode.step`` a step holding
-        ``.attend`` (every stream's attentions), ``.cell`` and ``.head``
-        (every stream's head and next history entry)."""
+        over the step invariants, holding ``decode.hoist.compose`` (the
+        conditioner+head compositions, :meth:`_fused_heads`), then one
+        ``decode.step`` a step holding ``.attend`` (every stream's
+        attentions), ``.cell`` and ``.head`` (every stream's head and next
+        history entry)."""
         dt, t_len = self.dtype, self.seq_len
         mh, mw = self.map_h, self.map_w
         n = x.shape[0]
@@ -177,7 +179,8 @@ class ScanpathModel(nn.Module):
             else:
                 kh = self.lstm.gate_kernel()
             h, c = torch.zeros_like(visual), torch.zeros_like(visual)
-            fused = self._fused_heads(task_ids, heads)
+            with tracing.span("decode.hoist.compose"):
+                fused = self._fused_heads(task_ids, heads)
             slots = torch.arange(t_len + 1, device=x.device)
 
         outs = [{"z": [], "mu": [], "sigma2": [], "amap": []}

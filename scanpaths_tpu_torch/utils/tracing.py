@@ -25,6 +25,10 @@ layer by layer, and how often each kernel ran.
   ``stage_apply.launches``, ``nw_scores_bins.launches`` and
   ``cond_head.launches`` (:func:`launches` reads the four), at Python
   dispatch: a CUDA graph's replay does not pass through them.
+  ``cond_head.composed`` counts the conditioner+head compositions
+  (``models/components.py::fuse_cond_head``: 1 a forward for OSIE, 2 for
+  AiR, the distinct task ids for COCO), only while spans are on
+  (:func:`active`).
 """
 
 from __future__ import annotations
@@ -124,10 +128,16 @@ def _stack() -> list:
     return stack
 
 
+def active() -> bool:
+    """Whether spans are on: between :func:`enable` and :func:`disable`,
+    or while a ``torch.profiler`` session runs."""
+    return _enabled or _profiler._is_profiler_enabled
+
+
 def span(name: str):
     """A context that records a span named ``name`` while tracing is on
     (module docstring), and does nothing otherwise."""
-    if not (_enabled or _profiler._is_profiler_enabled):
+    if not active():
         return _OFF
     return _On(name)
 

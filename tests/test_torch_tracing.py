@@ -4,7 +4,8 @@ do-nothing context; on, an eval forward's span tree (the trunk, the
 decoder's hoist and T steps of attend, cell and head) shares one root a
 call; a profiler session turns the spans on and its end turns them off;
 the spans' host clock lines up with the profiler's trace; the exported
-serving graph holds nothing of them; the launch counters."""
+serving graph holds nothing of them; the launch counters and the count
+of conditioner+head compositions."""
 
 import contextlib
 
@@ -50,7 +51,7 @@ def _model(task):
 def _inputs(task, n=1):
     images = common.random_images(n, GEO, "cpu")
     maps = None
-    if task == "air":
+    if task in ("air", "coco"):
         maps = torch.rand((n, GEO["map_h"], GEO["map_w"], 1),
                           generator=torch.Generator().manual_seed(1))
     return images, maps
@@ -99,12 +100,13 @@ def test_eval_forward_span_tree(task):
         kids = children(decode.id)
         assert [s.name for s in kids] == ["decode.hoist"] + \
             ["decode.step"] * t
-        assert children(kids[0].id) == []
+        assert [s.name for s in children(kids[0].id)] == \
+            ["decode.hoist.compose"]
         for step in kids[1:]:
             assert [s.name for s in children(step.id)] == STEP
             for s in children(step.id):
                 assert step.t0_ns <= s.t0_ns <= s.t1_ns <= step.t1_ns
-    assert len(spans) == calls * (4 + 4 * t)
+    assert len(spans) == calls * (5 + 4 * t)
 
 
 def test_a_profiler_session_turns_spans_on(osie):
@@ -169,3 +171,31 @@ def test_counters_and_launches():
     tracing.reset_counters("test.a")
     assert tracing.counter("test.a") == 0
     assert set(tracing.launches()) == set(tracing.KERNELS)
+
+
+@pytest.mark.parametrize("task, ids, composed", [
+    ("osie", None, 1), ("air", None, 2), ("coco", [4, 4, 4], 1),
+    ("coco", [0, 9, 17], 3), ("coco", [3, 11, 3], 2)])
+def test_compositions_have_a_span_and_a_count(task, ids, composed):
+    """An eval forward's ``decode.hoist`` holds one
+    ``decode.hoist.compose``, and ``cond_head.composed`` rises by the
+    conditioner+head compositions: 1 for OSIE, 2 for AiR, the distinct
+    target ids for COCO (all equal, all distinct, repeated); with spans
+    off it does not rise."""
+    model = _model(task)
+    images, maps = _inputs(task, 3)
+    task_ids = None if ids is None else torch.tensor(ids)
+    tracing.reset_counters("cond_head.composed")
+    model(images, maps, task_ids)
+    assert tracing.counter("cond_head.composed") == 0
+    tracing.enable()
+    model(images, maps, task_ids)
+    tracing.disable()
+    assert tracing.counter("cond_head.composed") == composed
+    spans = tracing.spans()
+    hoist = [s for s in spans if s.name == "decode.hoist"]
+    compose = [s for s in spans if s.name == "decode.hoist.compose"]
+    assert len(hoist) == len(compose) == 1
+    assert compose[0].parent == hoist[0].id
+    assert hoist[0].t0_ns <= compose[0].t0_ns <= compose[0].t1_ns \
+        <= hoist[0].t1_ns
