@@ -37,6 +37,11 @@ Phases, each reporting on its own lines and with its wall time:
    version in float64, in float32 and bfloat16, for one stream, AiR's two
    heads and COCO's per-sample fields, with its time, the plain
    version's and cuDNN's two convs alone (library_ms) at N = 16 and N = 1;
+   the compose kernel (csrc/compose.cu) against its plain version in
+   float64 at COCO's bank (K = 18), OSIE's conditioner (K = 1) and AiR's
+   two (K = 2), with its time, the plain version's, cuBLAS's product of
+   the bank with the head's 51 columns alone (library_ms) and a stock-op
+   composition of two matmuls at K = 18 and K = 1;
 5. serving slice, for each task: serves 12 images through
    scanpaths_tpu_torch.cli.predict at full width (ResNet-50, embed 512,
    240x320, T=16, batch 8, weights from a seed), greedy and sampled,
@@ -520,6 +525,216 @@ def check_head(head, gen, sms):
     return summary
 
 
+def compose_work(k, c, mh, mw):
+    """(operations, bytes) of composing K conditioner entries [5, 5, C, C]
+    with the head: the products of each entry with the head's 51 columns
+    (kd's 49 taps, w2, w3), a multiply-add two operations, over the
+    entries' kernels and biases and the head's weights in and the fields
+    out (219 C + 3 + h5 w5 a entry), float32."""
+    h5, w5 = (mh - 3) // 5 + 1, (mw - 3) // 5 + 1
+    flops = 2 * k * 25 * c * c * 51
+    nbytes = 4 * (k * (25 * c * c + c) + 51 * c + 3
+                  + k * (219 * c + 3 + h5 * w5))
+    return flops, nbytes
+
+
+def _compose_library(bank, w):
+    """cuBLAS's float32 product of the bank [K, 5, 5, C, C] (contiguous)
+    with the head's 51 columns ``w`` [C, 51]: the bulk of the compose
+    kernel's operations in one library call (TF32 off), its yardstick."""
+    return torch.matmul(bank.view(-1, bank.shape[-1]), w)
+
+
+def _stock_columns(raw):
+    """The head's 51 columns [C, 51]: kd's 49 taps, w2, w3."""
+    c = raw["kd"][0].shape[2]
+    return torch.cat([raw["kd"][0][..., 0].reshape(49, c),
+                      raw["w2"][0][0, 0, :, 0][None],
+                      raw["w3"][0][0, 0, :, 0][None]]).t()
+
+
+def _stock_fold(mh, mw, device):
+    """The constant 0/1 matrices of the stock-op composition: ``fold``
+    [25 * 51, 219] takes a channel's 25 x 51 products T[a, b, i, n] to its
+    219 outputs (k_sa's 50, keff's 121, wr's 22, wc's 22, wcc's 4, as
+    csrc/compose.cu's header gives them), ``count`` [49, h5 * w5] sums
+    kd . b1 over each drt window's taps inside the map."""
+    fold = torch.zeros(25, 51, 219, dtype=torch.float32)
+    for a in range(5):
+        for b in range(5):
+            fold[5 * a + b, 49, 2 * (5 * a + b)] = 1
+            fold[5 * a + b, 50, 2 * (5 * a + b) + 1] = 1
+            for p in range(7):
+                for q in range(7):
+                    fold[5 * a + b, 7 * p + q, 50 + 11 * (a + p) + b + q] = 1
+    for d in range(5):
+        for t in range(7):
+            fold[20 + d, t, 171 + d + t] += 1
+            fold[15 + d, 7 + t, 171 + d + t] += 1
+            fold[20 + d, 7 + t, 182 + d + t] += 1
+            fold[5 * d + 4, 7 * t, 193 + 2 * (d + t)] += 1
+            fold[5 * d + 3, 7 * t + 1, 193 + 2 * (d + t)] += 1
+            fold[5 * d + 4, 7 * t + 1, 194 + 2 * (d + t)] += 1
+    for y in range(2):
+        for x in range(2):
+            for j in range(y, 2):
+                for k in range(x, 2):
+                    fold[5 * (y + 4 - j) + x + 4 - k, 7 * j + k,
+                         215 + 2 * y + x] += 1
+    h5, w5 = (mh - 3) // 5 + 1, (mw - 3) // 5 + 1
+    rows = [[[0 <= 5 * o - 2 + p < n for p in range(7)] for o in range(m)]
+            for n, m in ((mh, h5), (mw, w5))]
+    count = torch.tensor([[float(rows[0][i][p] and rows[1][j][q])
+                           for i in range(h5) for j in range(w5)]
+                          for p in range(7) for q in range(7)])
+    return fold.view(25 * 51, 219).to(device), count.to(device)
+
+
+def _compose_stock(bank, bias, raw, fold, count, h5, w5):
+    """The composition in stock ops, the design the kernel was weighed
+    against: T = bank . [kd | w2 | w3] as one float32 matmul, the
+    channels' products regrouped, one matmul with ``fold`` to every
+    field, the biases by two more; contiguous fields, as the kernel's."""
+    k, c = bank.shape[0], bank.shape[-1]
+    w = _stock_columns(raw)
+    t = torch.matmul(bank.view(-1, c), w).view(k, 25, c, 51)
+    f = torch.matmul(t.transpose(1, 2).reshape(k * c, 25 * 51),
+                     fold).view(k, c, 219)
+
+    def field(lo, hi, *shape, dim=-1):
+        return f[..., lo:hi].reshape(k, c, *shape).movedim(1, dim) \
+            .contiguous()
+    bb = torch.matmul(bias, w)
+    return {"k_sa": field(0, 50, 5, 5, 2, dim=-2),
+            "b_sa": bb[:, 49:] + torch.cat([raw["w2"][1], raw["w3"][1]]),
+            "keff": field(50, 171, 11, 11)[..., None],
+            "wr": field(171, 193, 2, 11), "wc": field(193, 215, 11, 2),
+            "wcc": field(215, 219, 2, 2),
+            "b1map": torch.matmul(bb[:, :49], count).view(k, h5, w5),
+            "bd": raw["kd"][1].repeat(k)}
+
+
+def check_compose(gen, sms):
+    """The compose kernel against its plain version in float64 at C = 512
+    and a 30x40 map: COCO's bank (K = 18, contiguous HWIO entries), OSIE's
+    conditioner (K = 1) and AiR's two (K = 2), the latter as the HWIO
+    views of OIHW conv weights, as the model holds them.  At K = 18 and
+    K = 1 also its time, the plain version's, cuBLAS's float32 product of
+    the bank with the head's 51 columns alone (``library_ms``, the bulk of
+    the work in one library call), the stock-op composition of two
+    matmuls (:func:`_compose_stock`, checked against float64 too) and the
+    bound, from CUDA events around back-to-back calls, and the device time
+    and kernels a call of the kernel, the library call and the stock
+    composition under torch.profiler.  Returns the summary (K = 18
+    unprefixed, K = 1 under "k1_")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scanpaths_tpu_torch.ops import compose
+    c, mh, mw = 512, 30, 40
+    h5, w5 = (mh - 3) // 5 + 1, (mw - 3) // 5 + 1
+
+    def rnd(*shape, std):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    def hwio(w):
+        return w.permute(2, 3, 1, 0)
+
+    def device(fn, iters):
+        """(device ms, kernels) a call of fn under the profiler."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = _device_events(prof)[0]
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        return sum(times.values()) / iters, n / iters
+    raw = {"w2": (hwio(rnd(1, c, 1, 1, std=c ** -0.5)), rnd(1, std=0.1)),
+           "w3": (hwio(rnd(1, c, 1, 1, std=c ** -0.5)), rnd(1, std=0.1)),
+           "kd": (hwio(rnd(1, c, 7, 7, std=(49 * c) ** -0.5)),
+                  rnd(1, std=0.1))}
+    raw64 = {k: (a.double(), b.double()) for k, (a, b) in raw.items()}
+    fold, count = _stock_fold(mh, mw, "cuda")
+    columns = _stock_columns(raw)
+    summary = {}
+    for k, layout in ((18, "bank"), (1, "conv"), (2, "conv")):
+        if layout == "bank":
+            ks = list(rnd(k, 5, 5, c, c, std=(25 * c) ** -0.5))
+            bs = list(rnd(k, c, std=0.3))
+        else:
+            ks = [hwio(rnd(c, c, 5, 5, std=(25 * c) ** -0.5))
+                  for _ in range(k)]
+            bs = [rnd(c, std=0.3) for _ in range(k)]
+        before = tracing.counter("cond_compose.launches")
+        got = compose.cond_compose(ks, bs, raw, mh, mw)
+        torch.cuda.synchronize()
+        if tracing.counter("cond_compose.launches") != before + 1:
+            raise AssertionError(f"compose K={k}: not one launch")
+        want = compose.compose_bank_heads([t.double() for t in ks],
+                                          [t.double() for t in bs], raw64,
+                                          mh, mw)
+        err = max(_close(f"compose K={k} {name}", got[name], want[name],
+                         F32_TOL, scaled=True) for name in compose.FIELDS)
+        line = (f"[kernels] compose K={k} ({layout}), C={c}, {mh}x{mw}: "
+                f"max abs err against float64 {err:.3g}")
+        if k != 2:
+            iters = 20 if k > 1 else 50
+            # the stock design reads the entries as one contiguous stack
+            bank = torch.stack([t.contiguous() for t in ks])
+            bias = torch.stack(bs)
+            stock = _compose_stock(bank, bias, raw, fold, count, h5, w5)
+            stock_err = max(
+                _close(f"stock compose K={k} {name}", stock[name],
+                       want[name], F32_TOL, scaled=True)
+                for name in compose.FIELDS)
+
+            def kernel_fn():
+                return compose.cond_compose(ks, bs, raw, mh, mw)
+
+            def plain_fn():
+                return compose.compose_bank_heads(ks, bs, raw, mh, mw)
+
+            def library_fn():
+                return _compose_library(bank, columns)
+
+            def stock_fn():
+                return _compose_stock(bank, bias, raw, fold, count, h5, w5)
+            ms, plain_ms = _pair_ms(kernel_fn, plain_fn, iters, 3)
+            stock_ms, library_ms = _pair_ms(stock_fn, library_fn, iters)
+            device_ms, _ = device(kernel_fn, iters)
+            library_device_ms, _ = device(library_fn, iters)
+            stock_device_ms, stock_kernels = device(stock_fn, iters)
+            del bank, bias, stock
+            flops, nbytes = compose_work(k, c, mh, mw)
+            bound_ms, bound_by = _bound(flops, nbytes,
+                                        PEAK_FLOPS[torch.float32])
+            blocks = ((c + 4) // 5 + 1) * k
+            line += (f"; {ms:.4f} ms (device {device_ms:.4f} ms; plain "
+                     f"{plain_ms:.4f} ms; cuBLAS's bank x 51 columns alone "
+                     f"{library_ms:.4f} ms, device {library_device_ms:.4f}; "
+                     f"stock two-matmul composition {stock_ms:.4f} ms, "
+                     f"device {stock_device_ms:.4f}, {stock_kernels:.0f} "
+                     f"kernels, max abs err {stock_err:.3g}; bound "
+                     f"{bound_ms:.4f} ms by {bound_by}; device "
+                     f"{_rate(flops, device_ms, bound_ms)}); {blocks} "
+                     f"blocks, {blocks / sms:.2f} a SM")
+            sp = "" if k == 18 else "k1_"
+            summary.update({
+                sp + "max_abs_err": err, sp + "ms": ms,
+                sp + "device_ms": device_ms, sp + "plain_ms": plain_ms,
+                sp + "library_ms": library_ms,
+                sp + "library_device_ms": library_device_ms,
+                sp + "stock_ms": stock_ms,
+                sp + "stock_device_ms": stock_device_ms,
+                sp + "stock_kernels": stock_kernels,
+                sp + "stock_max_abs_err": stock_err,
+                sp + "bound_ms": bound_ms, sp + "bound_by": bound_by})
+        else:
+            summary["k2_max_abs_err"] = err
+        print(line, flush=True)
+    return summary
+
+
 def _rate(flops, ms, bound_ms):
     """TFLOP/s achieved and the share of the bound reached."""
     return f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of bound"
@@ -534,11 +749,13 @@ def _waves(label, grid, sms):
 
 
 def check_kernels(cell, block):
-    """The cell, stage and head kernels; returns {kernel: {"max_abs_err",
-    "ms", "plain_ms", "bound_ms", "bound_by", "bf16_..."}} at the main
-    path's shapes (float32 keys unprefixed, bfloat16 ones prefixed; the
-    cell's two-stream shape, AiR's, also prefixed "s2_"; the head's N = 1
-    "n1_", with cuDNN's convs as "library_ms", :func:`check_head`)."""
+    """The cell, stage, head and compose kernels; returns {kernel:
+    {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bf16_..."}}
+    at the main path's shapes (float32 keys unprefixed, bfloat16 ones
+    prefixed; the cell's two-stream shape, AiR's, also prefixed "s2_"; the
+    head's N = 1 "n1_", with cuDNN's convs as "library_ms",
+    :func:`check_head`; the compose kernel's K = 1 "k1_",
+    :func:`check_compose`)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -650,6 +867,7 @@ def check_kernels(cell, block):
             pre + "bound_by": bound_by})
     from scanpaths_tpu_torch.ops import head
     summary["cond_head"] = check_head(head, gen, sms)
+    summary["cond_compose"] = check_compose(gen, sms)
     return summary
 
 
@@ -807,11 +1025,12 @@ def run_slice(cell, block, predict, tmp, task):
             ("sample", "true")]
     forwards = -(-IMAGES // BATCH)
     want_s = 2 if task == "air" else 1
-    totals = {"cell_step": 0, "stage_apply": 0, "cond_head": 0}
+    totals = {"cell_step": 0, "stage_apply": 0, "cond_head": 0,
+              "cond_compose": 0}
     for decode, half in runs:
         step, streams = _counting_streams(cell)
         tracing.reset_counters("cell_step.launches", "stage_apply.launches",
-                               "cond_head.launches")
+                               "cond_head.launches", "cond_compose.launches")
         t0 = time.perf_counter()
         with mock.patch.object(cell, "cell_step", step), \
                 capture_durations() as calls:
@@ -825,26 +1044,31 @@ def run_slice(cell, block, predict, tmp, task):
         dc = tracing.counter("cell_step.launches")
         db = tracing.counter("stage_apply.launches")
         dh = tracing.counter("cond_head.launches")
+        dk = tracing.counter("cond_compose.launches")
         inf = overflowed_durations(
             calls, [min(BATCH, IMAGES - lo) for lo in range(0, IMAGES, BATCH)]
             if decode == "sample" else [], task, True)
         _check_records(records, IMAGES, 10 if decode == "sample" else 1,
                        320, 240, overflow=inf)
         if dc != SEQ * forwards or db != 3 * forwards or \
-                dh != SEQ * forwards * want_s or set(streams) != {want_s}:
+                dh != SEQ * forwards * want_s or dk != forwards or \
+                set(streams) != {want_s}:
             raise AssertionError(
                 f"{task} {decode} half={half}: {forwards} forwards launched "
                 f"the cell kernel {dc} times (streams {sorted(set(streams))})"
-                f", the stage kernel {db} times and the head kernel {dh} "
-                f"times (expected {SEQ * forwards} with S={want_s}, "
-                f"{3 * forwards} and {SEQ * forwards * want_s})")
+                f", the stage kernel {db} times, the head kernel {dh} "
+                f"times and the compose kernel {dk} times (expected "
+                f"{SEQ * forwards} with S={want_s}, {3 * forwards}, "
+                f"{SEQ * forwards * want_s} and {forwards})")
         totals["cell_step"] += dc
         totals["stage_apply"] += db
         totals["cond_head"] += dh
+        totals["cond_compose"] += dk
         print(f"[slice] {task} predict --decode {decode} --half_precision "
               f"{half}: {len(records)} records from {IMAGES} images, "
               f"{forwards} forwards, cell launches {dc} (S={want_s}), stage "
-              f"launches {db}, head launches {dh}, {secs:.2f} s wall (model build and image "
+              f"launches {db}, head launches {dh}, compose launches {dk}, "
+              f"{secs:.2f} s wall (model build and image "
               f"load included); {inf} sampled durations overflow float32 "
               "(each past float32's range by its float64 exponent)",
               flush=True)
@@ -1496,7 +1720,7 @@ def run_test_slice(cell, block, nw, test_cli, device_eval, heval, argv,
     want = {"cell_step": SEQ * forwards, "stage_apply": 3 * forwards,
             "nw_scores_bins": 2 * forwards
             + 2 * REPEATS * forwards * streams,
-            "cond_head": SEQ * forwards * streams}
+            "cond_head": SEQ * forwards * streams, "cond_compose": forwards}
     totals = dict.fromkeys(want, 0)
     real_add = device_eval.DeviceSweep.add_batch
     real_add_air = device_eval.DeviceSweep.add_batch_air
@@ -1791,7 +2015,8 @@ def run_train_slice(cell, block, nw, argv):
     got = tracing.launches()
     want = {"cell_step": 0, "stage_apply": 0,
             "nw_scores_bins": TRAIN_STEPS * streams * 2
-            + (TRAIN_STEPS * 2 if rl_cfg.apply_cd else 0), "cond_head": 0}
+            + (TRAIN_STEPS * 2 if rl_cfg.apply_cd else 0), "cond_head": 0,
+            "cond_compose": 0}
     if got != want:
         raise AssertionError(f"{task} training: launches {got}, expected "
                              f"{want}")
@@ -2433,8 +2658,9 @@ def print_trainer_records(task, label, records, rollouts, nw):
 
 def check_trainer_launches(task, label, records, n_streams, repeats,
                            val_forwards, rl_steps, apply_cd):
-    """No cell, stage or head launch in a training step; 16 cell, 3
-    stage and 16 head launches a stream per validation forward; NW: 2 per SCST step and stream (2
+    """No cell, stage, head or compose launch in a training step; 16
+    cell, 3 stage and 16 head launches a stream and one compose launch
+    per validation forward; NW: 2 per SCST step and stream (2
     more per step for AiR's CD term), 2 per human-baseline batch, 2 per
     sweep batch, repeat and stream."""
     for i, rec in enumerate(records):
@@ -2447,17 +2673,20 @@ def check_trainer_launches(task, label, records, n_streams, repeats,
                                      f"SCST steps, expected {rl_steps}")
             _expect(where, rec["launches"], {"cell_step": 0, "stage_apply": 0,
                                              "nw_scores_bins": nw_want,
-                                             "cond_head": 0})
+                                             "cond_head": 0,
+                                             "cond_compose": 0})
         elif rec["kind"] == "validation":
             _expect(where, rec["launches"], {
                 "cell_step": SEQ * val_forwards,
                 "stage_apply": 3 * val_forwards,
                 "nw_scores_bins": 2 * repeats * val_forwards * n_streams,
-                "cond_head": SEQ * val_forwards * n_streams})
+                "cond_head": SEQ * val_forwards * n_streams,
+                "cond_compose": val_forwards})
         elif rec["kind"] == "human":
             _expect(where, rec["launches"], {
                 "cell_step": 0, "stage_apply": 0,
-                "nw_scores_bins": 2 * val_forwards, "cond_head": 0})
+                "nw_scores_bins": 2 * val_forwards, "cond_head": 0,
+                "cond_compose": 0})
 
 
 def run_trainer_slice(cell, block, nw, argv, keep=None):
@@ -2561,7 +2790,8 @@ def run_trainer_slice(cell, block, nw, argv, keep=None):
         "cell_step": SEQ * val_forwards, "stage_apply": 3 * val_forwards,
         "nw_scores_bins": 2 * val_forwards
         + 2 * REPEATS * val_forwards * streams,
-        "cond_head": SEQ * val_forwards * streams})
+        "cond_head": SEQ * val_forwards * streams,
+        "cond_compose": val_forwards})
     out = "validation" if task == "coco" else "test"
     with open(os.path.join(log_dir, f"{out}_predicts.json")) as f:
         records = json.load(f)
@@ -2903,9 +3133,9 @@ def check_joint_run(log_dir, order, tasks):
 
 
 def check_joint_records(records, nw, repeats):
-    """The launch counts of the phase's training steps (no cell or stage
-    launch; NW 2 per SCST step and stream), validations (16 cell and 3
-    stage launches per forward, NW 2 per sweep batch, repeat and stream)
+    """The launch counts of the phase's training steps (no cell, stage,
+    head or compose launch; NW 2 per SCST step and stream), validations
+    (16 cell, 3 stage and one compose launch per forward, NW 2 per sweep batch, repeat and stream)
     and human baselines (NW 2 per batch), and every NW call of the SCST
     steps against the plain NW exactly.  Returns the NW calls checked."""
     checked = 0
@@ -2916,7 +3146,7 @@ def check_joint_records(records, nw, repeats):
             _expect(where, rec["launches"], {
                 "cell_step": 0, "stage_apply": 0,
                 "nw_scores_bins": 2 * streams if rec["rl"] else 0,
-                "cond_head": 0})
+                "cond_head": 0, "cond_compose": 0})
             for j, (_, _, a, out) in enumerate(rec["nw_calls"]):
                 _exact(f"{where} SCST NW call {j + 1}", out,
                        nw.nw_scores_bins_plain(*a))
@@ -2926,11 +3156,12 @@ def check_joint_records(records, nw, repeats):
             _expect(where, rec["launches"], {
                 "cell_step": SEQ * fw, "stage_apply": 3 * fw,
                 "nw_scores_bins": 2 * repeats * fw * streams,
-                "cond_head": SEQ * fw * streams})
+                "cond_head": SEQ * fw * streams, "cond_compose": fw})
         elif rec["kind"] == "human":
             _expect(where, rec["launches"], {
                 "cell_step": 0, "stage_apply": 0,
-                "nw_scores_bins": 2 * rec["forwards"], "cond_head": 0})
+                "nw_scores_bins": 2 * rec["forwards"], "cond_head": 0,
+                "cond_compose": 0})
     return checked
 
 
@@ -3136,7 +3367,7 @@ def run_joint_slice(cell, block, nw, tmp):
         _expect(f"{task} test on the joint run", got, {
             "cell_step": SEQ * fw, "stage_apply": 3 * fw,
             "nw_scores_bins": 2 * fw + 2 * REPEATS * fw * streams,
-            "cond_head": SEQ * fw * streams})
+            "cond_head": SEQ * fw * streams, "cond_compose": fw})
         out = "validation" if task == "coco" else "test"
         with open(os.path.join(log_dir, f"{out}_predicts.json")) as f:
             n_records = len(json.load(f))
@@ -3153,7 +3384,7 @@ def run_joint_slice(cell, block, nw, tmp):
     # serving the run's COCO head
     img_dir = serving_images(tmp)
     tracing.reset_counters("cell_step.launches", "stage_apply.launches",
-                           "cond_head.launches")
+                           "cond_head.launches", "cond_compose.launches")
     t0 = time.perf_counter()
     with mock.patch.object(predictor, "checkpoint_path", checkpoint_path), \
             capture_durations() as calls:
@@ -3174,10 +3405,10 @@ def run_joint_slice(cell, block, nw, tmp):
         "coco", True)
     _check_records(records, IMAGES, 10, 320, 240, overflow=inf)
     got = {k: tracing.counter(f"{k}.launches")
-           for k in ("cell_step", "stage_apply", "cond_head")}
+           for k in ("cell_step", "stage_apply", "cond_head", "cond_compose")}
     _expect("predict on the joint run", got, {
         "cell_step": SEQ * forwards, "stage_apply": 3 * forwards,
-        "cond_head": SEQ * forwards})
+        "cond_head": SEQ * forwards, "cond_compose": forwards})
     for k in got:
         total[k] += got[k]
     print(f"[joint] cli/predict.py --task coco --evaluation_dir <the joint "
@@ -3323,7 +3554,8 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
         fn, mf = real_load(path, device)
         loaded[path] = (fn, mf, time.perf_counter() - t1)
         return fn, mf
-    total = {"cell_step": 0, "stage_apply": 0, "cond_head": 0}
+    total = {"cell_step": 0, "stage_apply": 0, "cond_head": 0,
+             "cond_compose": 0}
     calls = -(-IMAGES // BATCH)
     serving = {task: task for task in TASKS}
     serving.update(osie_sample="osie", osie_bf16="osie", osie_sym="osie",
@@ -3333,11 +3565,12 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
     def serve(name, d, secs, wall, mb):
         """cli/predict.py --bundle on the served images; checks the
         records and the launches (16 cell, cell ops with S streams, 3
-        stage and 16 S head a call)."""
+        stage and 16 S head a call; one compose a call, none for COCO,
+        whose bundle holds its bank composed)."""
         task = serving[name]
         want_s = 2 if task == "air" else 1
         tracing.reset_counters("cell_step.launches", "stage_apply.launches",
-                               "cond_head.launches")
+                               "cond_head.launches", "cond_compose.launches")
         with mock.patch.object(predict, "load_bundle", load):
             records = predict.main(
                 ["--task", task, "--bundle", d, "--predict_images", img_dir,
@@ -3347,9 +3580,10 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
         torch.cuda.synchronize()
         fn, mf, load_s = loaded[d]
         got = {k: tracing.counter(f"{k}.launches") for k in total}
-        _expect(f"bundle {name}", got, {"cell_step": SEQ * calls,
-                                        "stage_apply": 3 * calls,
-                                        "cond_head": SEQ * calls * want_s})
+        _expect(f"bundle {name}", got, {
+            "cell_step": SEQ * calls, "stage_apply": 3 * calls,
+            "cond_head": SEQ * calls * want_s,
+            "cond_compose": 0 if task == "coco" else calls})
         streams = _program_streams(fn)
         if streams != [want_s] * SEQ:
             raise AssertionError(f"bundle {name}: cell ops with streams "
@@ -3398,11 +3632,11 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
         """``run()``'s bundle calls, with their launches checked and
         added to the phase's."""
         tracing.reset_counters("cell_step.launches", "stage_apply.launches",
-                               "cond_head.launches")
+                               "cond_head.launches", "cond_compose.launches")
         out = run()
         torch.cuda.synchronize()
         want = {"cell_step": SEQ * calls, "stage_apply": 3 * calls,
-                "cond_head": SEQ * calls}
+                "cond_head": SEQ * calls, "cond_compose": calls}
         _expect(label, {k: tracing.launches()[k] for k in want}, want)
         for k, v in want.items():
             total[k] += v
@@ -3458,13 +3692,14 @@ def run_export_slice(cell, block, predict, predictor_mod, tmp, test_argv,
             del pred
             pred = predictor_mod.Predictor(parse_opt(
                 flags + ["--half_precision", half]), DEVICE)
-        names = ("cell_step", "stage_apply", "cond_head")
+        names = ("cell_step", "stage_apply", "cond_head", "cond_compose")
         kernels = [tracing.counter(f"{k}.launches") for k in names]
         bundle_ms, live_ms = _pair_ms(lambda: fn(images),
                                       lambda: live(pred, images), TIME_ITERS)
         n = 2 + 4 * TIME_ITERS
         if [tracing.counter(f"{k}.launches") - c
-                for k, c in zip(names, kernels)] != [n * SEQ, n * 3, n * SEQ]:
+                for k, c in zip(names, kernels)] != [n * SEQ, n * 3, n * SEQ,
+                                                     n]:
             raise AssertionError("timed calls: unexpected launches")
         dtype = "bfloat16" if half == "true" else "float32"
         print(f"[export] osie {dtype} batch {BATCH}: bundle {bundle_ms:.2f} "
@@ -3960,7 +4195,7 @@ def check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8):
                     f"{r['model_parallel']}) rank {r['rank']}",
                     got["launches"], {"cell_step": 0, "stage_apply": 0,
                                       "nw_scores_bins": nw_want,
-                                      "cond_head": 0})
+                                      "cond_head": 0, "cond_compose": 0})
             if got["nw_checked"] != nw_want:
                 raise AssertionError(f"{task}: {got['nw_checked']} NW calls "
                                      "checked")
@@ -4041,7 +4276,8 @@ def check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8):
                     f"{r['model_parallel']} rank {r['rank']}",
                     fw["launches"], {"cell_step": SEQ, "stage_apply": 3,
                                      "nw_scores_bins": 0,
-                                     "cond_head": SEQ * streams})
+                                     "cond_head": SEQ * streams,
+                                     "cond_compose": 1})
         print(f"[dp] {task} TP eval forward (1 x 2 mesh, the sliced "
               f"kernels gathered whole) of the first batch against world "
               f"1's: max abs err " + ", ".join(f"{k} {v:.3g}"
@@ -4101,7 +4337,8 @@ def check_dp_steps(tmp, test_argv, smi, phase7_ms, phase8):
                         "stage_apply": 3 * forwards,
                         "nw_scores_bins": (2 + 2 * REPEATS * streams)
                         * forwards,
-                        "cond_head": SEQ * forwards * streams})
+                        "cond_head": SEQ * forwards * streams,
+                        "cond_compose": forwards})
         t0, t1 = (r["tests"][i] for r in wt)
         if t1["records"] or len(t0["records"]) != len(ref["records"]):
             raise AssertionError(f"{task} records: rank 0 "
@@ -4342,7 +4579,8 @@ def check_entry(cell, block, nw):
     driven = _minus(tracing.launches(), first)
     got = _minus(tracing.launches(), before)
     _expect("entry() forward", got, {"cell_step": SEQ, "stage_apply": 3,
-                                     "nw_scores_bins": 0, "cond_head": SEQ})
+                                     "nw_scores_bins": 0, "cond_head": SEQ,
+                                     "cond_compose": 1})
     n, mh, mw = images.shape[0], images.shape[1] // 8, images.shape[2] // 8
     want = {"all_actions_prob": (n, SEQ, 1 + mh * mw),
             "log_normal_mu": (n, SEQ), "log_normal_sigma2": (n, SEQ),
@@ -4393,7 +4631,7 @@ def check_dryrun(n):
     got = json.loads(m.group(1))
     _expect(f"dryrun_multichip({n})", got, {
         "cell_step": 0, "stage_apply": 0, "nw_scores_bins": 2 * n,
-        "cond_head": 0})
+        "cond_head": 0, "cond_compose": 0})
     return got
 
 
@@ -4508,11 +4746,13 @@ def check_profile_scan(smi):
     total = dict.fromkeys(tracing.KERNELS, 0)
     for rec in recs:
         loops = len(profile_scan.VARIANTS) * rec["loops_per_variant"]
-        # the head runs in two of the variants, cell+head and full
+        # the head runs in two of the variants, cell+head and full; the
+        # hoist composes once
         _expect(f"profile_scan {rec['dtype']}", rec["launches"], {
             "cell_step": SEQ * loops, "stage_apply": 3,
             "nw_scores_bins": 0,
-            "cond_head": 2 * SEQ * rec["loops_per_variant"]})
+            "cond_head": 2 * SEQ * rec["loops_per_variant"],
+            "cond_compose": 1})
         bad = {k: v for k, v in rec["trace"].items() if v != "ok"}
         if bad:
             raise AssertionError(f"profile_scan {rec['dtype']}: the trace "
@@ -4722,10 +4962,12 @@ def main():
                                "scanpaths_tpu/ops/pallas_block.py:197"),
                "nw_scores_bins": ("scanpaths_tpu_torch/csrc/nw.cu",
                                   "scanpaths_tpu/ops/pallas_nw.py:111"),
-               "cond_head": ("scanpaths_tpu_torch/csrc/head.cu", None)}
+               "cond_head": ("scanpaths_tpu_torch/csrc/head.cu", None),
+               "cond_compose": ("scanpaths_tpu_torch/csrc/compose.cu", None)}
     # no single PyTorch call computes any of the first three functions (a
     # fused ConvLSTM step, a stage of bottleneck blocks, an NW alignment);
-    # the head's library_ms is cuDNN's two convs it replaced
+    # the head's library_ms is cuDNN's two convs it replaced, the compose
+    # kernel's cuBLAS's product of the bank with the head's 51 columns
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1], launches=launches[name],
                     **{"library_ms": None, **summary[name]})

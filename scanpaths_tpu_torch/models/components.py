@@ -2,7 +2,9 @@
 the hoisted x-gates, the fused ConvLSTM cell with factorized task-signal
 gates, the history attentions, the prediction head, the task
 conditioners (OSIE's single conv, AiR's dual streams, COCO's per-category
-bank) and the exact conditioner+head composition.
+bank) and the exact conditioner+head composition (``fuse_cond_head``
+lives in ``ops/compose.py``, beside the kernel that composes a stack of
+entries, and is imported here).
 
 Parameters are held in torch layouts (``nn.Conv2d`` OIHW, ``nn.Linear``
 [out, in]) under the JAX package's names; activations are NHWC at every
@@ -28,9 +30,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cell as cell_ops
+from ..ops import compose as compose_ops
 from ..ops import head as head_ops
+from ..ops.compose import fuse_cond_head
 from ..train import mesh
-from ..utils import tracing
 
 NEG_INF = -1e9
 
@@ -333,115 +336,37 @@ class Conditioner(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Fused conditioner+head evaluation
-#
-# The conditioner's 5x5 conv output feeds the head with no nonlinearity
-# in between, and every head consumer of it is a linear C->1 conv, so
-# the chain composes exactly: contract the conditioner kernel with each
-# head kernel once per forward and apply only C->1 convs per step.  The
-# drt composition (7x7 stride 5 after 5x5, both zero-padded) is an 11x11
-# stride-5 conv on the zero-extended input plus corrections for the
-# windows that overlap the conditioner's zero padding (output row 0 and
-# column 0 when H and W are divisible by 5).
+# Fused conditioner+head evaluation: the compositions (``ops/compose.py``:
+# ``fuse_cond_head`` one entry in stock ops, ``cond_compose`` a stack of
+# entries in one kernel launch) and their per-step application.
 # ---------------------------------------------------------------------------
 
 
-def _rowcomp(k1row, kdrow):
-    """1-D kernel composition: out[q, i] = sum_{b+dx=q} kdrow[b, o] *
-    k1row[dx, i, o], with dx in 0..4, b in 0..6, q in 0..10."""
-    parts = torch.einsum("xio,bo->bxi", k1row, kdrow)   # [7, 5, C]
-    out = k1row.new_zeros((11, k1row.shape[1]))
-    for b in range(7):
-        out[b:b + 5] += parts[b]
-    return out
-
-
-def fuse_cond_head(k1, b1, head_raw: dict, map_h: int, map_w: int) -> dict:
-    """Compose a [5, 5, C, C] HWIO conditioner kernel/bias with the
-    head's three C->1 convs (``PredictHead.raw``).  All maths in the
-    parameters' dtype.  Returns the tensors
-    :func:`apply_fused_cond_head` consumes.  While spans are on
-    (``utils/tracing.py``) each call adds one to ``cond_head.composed``."""
-    if tracing.active():
-        tracing.count("cond_head.composed")
-    c = k1.shape[2]
-    w2k, w2b = head_raw["w2"]
-    w3k, w3b = head_raw["w3"]
-    kdk, kdb = head_raw["kd"]
-    w2 = w2k[0, 0, :, 0]
-    w3 = w3k[0, 0, :, 0]
-    kd = kdk[..., 0]                                    # [7, 7, Co]
-
-    # 1x1 head convs compose exactly (stop map + action map)
-    k_sa = torch.stack([torch.einsum("yxco,o->yxc", k1, w2),
-                        torch.einsum("yxco,o->yxc", k1, w3)], dim=-1)
-    b_sa = torch.stack([b1 @ w2 + w2b[0], b1 @ w3 + w3b[0]])
-
-    # drt main term: the 11x11 composite kernel, a "full" correlation of
-    # the conditioner kernel (as C images of 5x5xCo) with the flipped drt
-    # kernel
-    lhs = k1.permute(2, 0, 1, 3)                        # [C, 5, 5, Co]
-    rhsf = kd.flip(0, 1)[..., None]                     # [7, 7, Co, 1]
-    keff = conv2d(lhs, rhsf, padding=((6, 6), (6, 6)))  # [C, 11, 11, 1]
-    keff = keff[..., 0].permute(1, 2, 0)[..., None]     # [11, 11, C, 1]
-
-    # border corrections: virtual conditioner rows/cols -2 and -1 that
-    # the zero-extended main term wrongly includes
-    wr = torch.stack([_rowcomp(k1[4], kd[0]) + _rowcomp(k1[3], kd[1]),
-                      _rowcomp(k1[4], kd[1])])          # [2(y), 11(q), C]
-    wc0 = _rowcomp(k1[:, 4], kd[:, 0]) + _rowcomp(k1[:, 3], kd[:, 1])
-    wc1 = _rowcomp(k1[:, 4], kd[:, 1])
-    wc = torch.stack([wc0, wc1], dim=1)                 # [11(p), 2(x), C]
-
-    # the corner is subtracted twice above: add it back once
-    def cc_term(y, x):
-        acc = k1.new_zeros((c,))
-        for j in range(y, 2):
-            for k in range(x, 2):
-                acc = acc + torch.einsum("o,io->i", kd[j, k],
-                                         k1[y + 4 - j, x + 4 - k])
-        return acc
-    wcc = torch.stack([torch.stack([cc_term(0, 0), cc_term(0, 1)]),
-                       torch.stack([cc_term(1, 0), cc_term(1, 1)])])
-
-    # conditioner bias through the drt window, clipped to the image: a
-    # geometry-dependent [h5, w5] constant map
-    k2b1 = torch.einsum("abo,o->ab", kd, b1)
-    ones = k1.new_ones((1, map_h, map_w, 1))
-    b1map = conv2d(ones, k2b1[..., None, None], strides=(5, 5),
-                   padding=((2, 2), (2, 2)))[0, ..., 0]
-
-    return {"k_sa": k_sa, "b_sa": b_sa, "keff": keff, "wr": wr, "wc": wc,
-            "wcc": wcc, "b1map": b1map, "bd": kdb[0]}
-
-
 def fuse_bank_heads(bank_k, bank_b, task_ids, head_raw: dict, map_h: int,
-                    map_w: int) -> dict:
+                    map_w: int, differentiable: bool = False) -> dict:
     """The composed conditioner+head of each sample's bank entry: every
-    field of :func:`fuse_cond_head` with a leading [N] axis.  Only the
-    entries whose ids occur in ``task_ids`` [N] are composed, once each
-    (the same values as composing all K entries and gathering)."""
-    ids, inv = torch.unique(task_ids, return_inverse=True)
-    ids = ids.tolist()
-    if ids[0] < 0 or ids[-1] >= bank_k.shape[0]:
-        raise ValueError(f"task ids {ids} outside the bank of "
-                         f"{bank_k.shape[0]} heads")
-    parts = [fuse_cond_head(bank_k[i], bank_b[i], head_raw, map_h, map_w)
-             for i in ids]
-    return {key: torch.stack([p[key] for p in parts])[inv]
-            for key in parts[0]}
-
-
-def compose_bank_heads(bank_k, bank_b, head_raw: dict, map_h: int,
-                       map_w: int) -> dict:
-    """Every bank entry's composed conditioner+head, each composed once
-    on its own: the fields of :func:`fuse_cond_head` with a leading [K]
-    axis.  Gathered by task id, ``{k: v[task_ids]}``, they are
-    :func:`fuse_bank_heads`'s values exactly, with no data-dependent
-    shape (the serving export keeps them and gathers per call)."""
-    parts = [fuse_cond_head(bank_k[i], bank_b[i], head_raw, map_h, map_w)
-             for i in range(bank_k.shape[0])]
-    return {key: torch.stack([p[key] for p in parts]) for key in parts[0]}
+    field of :func:`fuse_cond_head` with a leading [N] axis.  The whole
+    bank is composed at once and gathered by ``task_ids`` [N] on the
+    bank's device, with no host sync: ids in a host tensor are checked
+    on the host (ValueError), ids on the card by an asynchronous device
+    assert.  The composition is :func:`ops.compose.cond_compose`, one
+    kernel launch on the card, or with ``differentiable`` (the training
+    forward's) its plain version in stock ops,
+    :func:`ops.compose.compose_bank_heads`: the kernel has no backward."""
+    k = bank_k.shape[0]
+    if task_ids.device.type == "cpu":
+        if task_ids.numel() and not (0 <= int(task_ids.min())
+                                     and int(task_ids.max()) < k):
+            raise ValueError(f"task ids {sorted(set(task_ids.tolist()))} "
+                             f"outside the bank of {k} heads")
+    else:
+        torch._assert_async(((task_ids >= 0) & (task_ids < k)).all(),
+                            f"task ids outside the bank of {k} heads")
+    compose = (compose_ops.compose_bank_heads if differentiable
+               else compose_ops.cond_compose)
+    bank = compose(bank_k, bank_b, head_raw, map_h, map_w)
+    ids = task_ids.to(bank_k.device)
+    return {key: v.index_select(0, ids) for key, v in bank.items()}
 
 
 def apply_fused_cond_head(h, fused: dict, dtype,

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.datasets import COCO_OBJECT_NAMES
+from ..ops.compose import compose_bank_heads, cond_compose
 from ..utils import tracing
 from . import resnet
 from .components import (
@@ -54,11 +55,9 @@ from .components import (
     SpatialAttention,
     XGates,
     apply_fused_cond_head,
-    compose_bank_heads,
     conv2d,
     dense,
     fuse_bank_heads,
-    fuse_cond_head,
     hwio,
     xavier_,
 )
@@ -105,34 +104,43 @@ class ScanpathModel(nn.Module):
         return {"spat": spat, "spat_conv": self.spatial_att.project(spat),
                 "sem": sem, "sem_proj": self.semantic_att.project(sem)}
 
-    def composed_heads(self) -> list[dict]:
+    def composed_heads(self, differentiable: bool = False) -> list[dict]:
         """The composed conditioner+head of every stream, from the
-        weights alone: one :func:`fuse_cond_head` dict per stream, or
-        for COCO one whose fields lead with the bank's [K] axis
-        (:func:`compose_bank_heads`).  A caller that keeps them passes
-        them to :meth:`forward` as ``heads``."""
+        weights alone, by one :func:`ops.compose.cond_compose` call over
+        every conditioner entry (OSIE's one, AiR's two, COCO's bank), or
+        with ``differentiable`` (the training forward's) by its plain
+        version in stock ops, :func:`ops.compose.compose_bank_heads`: the
+        kernel has no backward.  One dict per stream, or for COCO one
+        whose fields lead with the bank's [K] axis.  A caller that keeps
+        them passes them to :meth:`forward` as ``heads``."""
+        compose = compose_bank_heads if differentiable else cond_compose
         raw = self.head.raw()
+        pairs = self.conditioner.kernels()
         if self.task == "coco":
-            (bank_k, bank_b), = self.conditioner.kernels()
-            return [compose_bank_heads(bank_k, bank_b, raw, self.map_h,
-                                       self.map_w)]
-        return [fuse_cond_head(k, b, raw, self.map_h, self.map_w)
-                for k, b in self.conditioner.kernels()]
+            (bank_k, bank_b), = pairs
+            return [compose(bank_k, bank_b, raw, self.map_h, self.map_w)]
+        bank = compose([k for k, _ in pairs], [b for _, b in pairs], raw,
+                       self.map_h, self.map_w)
+        return [{key: v[s] for key, v in bank.items()}
+                for s in range(len(pairs))]
 
-    def _fused_heads(self, task_ids, heads=None):
+    def _fused_heads(self, task_ids, heads=None, differentiable=False):
         """The composed conditioner+head per stream, once per forward:
         one dict per stream, or for COCO one with a leading [N] axis
-        (each sample's bank entry).  ``heads`` (:meth:`composed_heads`)
-        replaces the composition: COCO's are gathered by task id."""
+        (each sample's bank entry, :func:`fuse_bank_heads`).  ``heads``
+        (:meth:`composed_heads`) replaces the composition: COCO's are
+        gathered by task id.  ``differentiable``: the training forward's
+        composition, in stock ops."""
         if self.task != "coco":
-            return heads if heads is not None else self.composed_heads()
+            return heads if heads is not None else \
+                self.composed_heads(differentiable)
         if task_ids is None:
             raise ValueError("the coco model needs task_ids")
         if heads is not None:
             return [{k: v[task_ids] for k, v in heads[0].items()}]
         (bank_k, bank_b), = self.conditioner.kernels()
         return [fuse_bank_heads(bank_k, bank_b, task_ids, self.head.raw(),
-                                self.map_h, self.map_w)]
+                                self.map_h, self.map_w, differentiable)]
 
     def _decode(self, x, attention_maps, task_ids, differentiable: bool,
                 heads=None):
@@ -180,7 +188,7 @@ class ScanpathModel(nn.Module):
                 kh = self.lstm.gate_kernel()
             h, c = torch.zeros_like(visual), torch.zeros_like(visual)
             with tracing.span("decode.hoist.compose"):
-                fused = self._fused_heads(task_ids, heads)
+                fused = self._fused_heads(task_ids, heads, differentiable)
             slots = torch.arange(t_len + 1, device=x.device)
 
         outs = [{"z": [], "mu": [], "sigma2": [], "amap": []}

@@ -100,8 +100,10 @@ def _shared_conv(x, kernel, strides=(1, 1), padding=((0, 0), (0, 0))):
     else:
         xin = F.pad(xin, (pl, pr, pt, pb))
         pad = 0
-    return F.conv2d(xin, kernel.permute(3, 2, 0, 1), stride=strides,
-                    padding=pad).permute(0, 2, 3, 1)
+    # the OIHW weight contiguous: torch's float64 CPU conv cannot take the
+    # gradient of a channels-last weight (a contiguous HWIO kernel's view)
+    return F.conv2d(xin, kernel.permute(3, 2, 0, 1).contiguous(),
+                    stride=strides, padding=pad).permute(0, 2, 3, 1)
 
 
 def cond_head_plain(h, fused):

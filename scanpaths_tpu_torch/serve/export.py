@@ -72,13 +72,13 @@ class ServeModule(nn.Module):
 
     COCO's bank of conditioners is composed with the head once here,
     every entry, into buffers gathered per call by task id
-    (``model.composed_heads``): the live forward composes only the ids
-    of a batch, a data-dependent shape no exported program can hold.
-    The module then holds the model without its conditioner, so the
-    bank's weights stay out of a bundle.  The other tasks compose in
-    the forward, as the live model does, so a bundle moved to another
-    device computes what the live model computes there (a COCO bundle
-    keeps the composition of the device it was exported on).  Greedy:
+    (``model.composed_heads``), where the live forward composes the
+    whole bank in each call.  The module then holds the model without
+    its conditioner, so the bank's weights stay out of a bundle.  The
+    other tasks compose in the forward, as the live model does, so a
+    bundle moved to another device computes what the live model computes
+    there (a COCO bundle keeps the composition of the device it was
+    exported on).  Greedy:
     ``forward(images[, attention_maps[, tasks]])``; sampled:
     ``forward(gumbel, normal, images, ...)`` with the noise of
     :func:`ops.sampling.sample_noise` at ``rollouts=R``.  Call it under

@@ -22,13 +22,14 @@ layer by layer, and how often each kernel ran.
 * :func:`count` always counts (an integer add); :func:`counter` and
   :func:`counters` read, :func:`reset_counters` zeroes.  The kernels'
   wrappers count their launches as ``cell_step.launches``,
-  ``stage_apply.launches``, ``nw_scores_bins.launches`` and
-  ``cond_head.launches`` (:func:`launches` reads the four), at Python
-  dispatch: a CUDA graph's replay does not pass through them.
-  ``cond_head.composed`` counts the conditioner+head compositions
-  (``models/components.py::fuse_cond_head``: 1 a forward for OSIE, 2 for
-  AiR, the distinct task ids for COCO), only while spans are on
-  (:func:`active`).
+  ``stage_apply.launches``, ``nw_scores_bins.launches``,
+  ``cond_head.launches`` and ``cond_compose.launches`` (:func:`launches`
+  reads the five), at Python dispatch: a CUDA graph's replay does not
+  pass through them (``cond_compose`` counts one a launch of up to 32
+  entries).  ``cond_head.composed`` counts the conditioner entries
+  composed with the head (``ops/compose.py``: 1 a forward for OSIE, 2
+  for AiR, the bank's 18 for COCO, in the eval and the training forward
+  alike), only while spans are on (:func:`active`).
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ from torch.autograd import profiler as _profiler
 
 CAPACITY = 1 << 16
 # the kernels whose wrappers count their launches, as "<kernel>.launches"
-KERNELS = ("cell_step", "stage_apply", "nw_scores_bins", "cond_head")
+KERNELS = ("cell_step", "stage_apply", "nw_scores_bins", "cond_head",
+           "cond_compose")
 
 
 @dataclasses.dataclass(frozen=True)

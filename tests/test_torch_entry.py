@@ -94,7 +94,8 @@ def test_dryrun_multichip_four_ranks():
     assert scaling.startswith("dryrun scaling: supervised step 4 ranks")
     # the plain versions run on the CPU: no kernel launches
     assert launches.endswith('{"cell_step": 0, "stage_apply": 0, '
-                             '"nw_scores_bins": 0, "cond_head": 0}')
+                             '"nw_scores_bins": 0, "cond_head": 0, '
+                             '"cond_compose": 0}')
     loss = float(re.search(r"loss=([-\d.]+)", sup).group(1))
     loss_tp = float(re.search(r"loss=([-\d.]+)", tp_sup).group(1))
     gap = float(re.search(r"to ([-\d.e+]+) \(bound", tp_sup).group(1))

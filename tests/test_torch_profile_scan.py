@@ -77,7 +77,8 @@ def test_variants_print_finite_lines():
         assert rec["loops_per_variant"] == profile_scan.WARMUP + 1
         # the plain versions run on the CPU: no kernel launches
         assert rec["launches"] == {"cell_step": 0, "stage_apply": 0,
-                                   "nw_scores_bins": 0, "cond_head": 0}
+                                   "nw_scores_bins": 0, "cond_head": 0,
+                                   "cond_compose": 0}
 
 
 @pytest.mark.parametrize("case", ["whole", "lost_events", "past_span"])

@@ -174,14 +174,14 @@ def test_counters_and_launches():
 
 
 @pytest.mark.parametrize("task, ids, composed", [
-    ("osie", None, 1), ("air", None, 2), ("coco", [4, 4, 4], 1),
-    ("coco", [0, 9, 17], 3), ("coco", [3, 11, 3], 2)])
+    ("osie", None, 1), ("air", None, 2), ("coco", [4, 4, 4], 18),
+    ("coco", [0, 9, 17], 18), ("coco", [3, 11, 3], 18)])
 def test_compositions_have_a_span_and_a_count(task, ids, composed):
     """An eval forward's ``decode.hoist`` holds one
     ``decode.hoist.compose``, and ``cond_head.composed`` rises by the
-    conditioner+head compositions: 1 for OSIE, 2 for AiR, the distinct
-    target ids for COCO (all equal, all distinct, repeated); with spans
-    off it does not rise."""
+    conditioner entries composed with the head: 1 for OSIE, 2 for AiR,
+    the whole bank of 18 for COCO whatever the target ids (all equal,
+    all distinct, repeated); with spans off it does not rise."""
     model = _model(task)
     images, maps = _inputs(task, 3)
     task_ids = None if ids is None else torch.tensor(ids)
