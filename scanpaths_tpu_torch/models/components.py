@@ -30,7 +30,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cell as cell_ops
-from ..ops import compose as compose_ops
 from ..ops import head as head_ops
 from ..ops.compose import fuse_cond_head
 from ..train import mesh
@@ -142,9 +141,9 @@ class FusedConvLSTMCell(nn.Module):
     c' = f*c + i*g, h' = o*c' (no tanh on c', the reference's quirk).
 
     The x-term arrives hoisted (:class:`XGates`) with the constant biases
-    folded in once per forward (:meth:`fold_bias`); each step of the
-    eval forward is one ``ops.cell.cell_step`` (:meth:`forward`), each
-    step of the training forward one :meth:`step` in stock ops."""
+    folded in (``prepared.cell``); each step of the eval forward is one
+    ``ops.cell.cell_step`` (:meth:`forward`), each step of the training
+    forward one :meth:`step` in stock ops."""
 
     def __init__(self, embed: int = 512, num_signals: int = 1,
                  dtype=torch.float32):
@@ -158,30 +157,19 @@ class FusedConvLSTMCell(nn.Module):
     def _sgate(self, idx: int) -> SignalGates:
         return self.gates_s0 if idx == 0 else self.gates_s1
 
-    def gate_kernel(self):
-        """The h-gate kernel in the cell's layout: HWIO [3, 3, C, 4C]."""
-        if self.gates_h.weight.shape[1] != self.embed:
-            raise ValueError("the cell kernel takes the whole h-gate kernel: "
-                             "gather the sliced kernels first "
-                             "(train/tp_step.py::gathered)")
-        return hwio(self.gates_h)[0].to(self.dtype).contiguous()
-
-    def fold_bias(self, xg):
-        """xg + the h-gate bias + the summed signal biases (i/f/o)."""
-        sb = sum(self._sgate(i).bias for i in range(self.num_signals))
-        bias = self.gates_h.bias + F.pad(sb, (0, self.embed))
-        return (xg + bias.to(self.dtype)).contiguous()
-
-    def forward(self, xg, h, c, signals, kh=None):
-        """xg: folded x-gates [N, H, W, 4C]; h, c: [N, H, W, C];
-        signals: one (spatial [N, H, W], semantic [N, C]) pair per
-        stream; kh: :meth:`gate_kernel`, hoisted by the caller.  Returns
-        (h', c') — ``c`` is updated in place."""
+    def _signals(self, signals):
+        """(spatial maps [N, H, W, S], contracted kernels [N, S, 9, 3C])."""
         smaps = torch.stack([s for s, _ in signals], dim=-1).to(self.dtype)
         kps = torch.stack([self._sgate(i).kp(cv)
                            for i, (_, cv) in enumerate(signals)], dim=1)
-        if kh is None:
-            kh = self.gate_kernel()
+        return smaps, kps
+
+    def forward(self, xg, h, c, signals, kh):
+        """xg: folded x-gates [N, H, W, 4C]; h, c: [N, H, W, C];
+        signals: one (spatial [N, H, W], semantic [N, C]) pair per
+        stream; kh: the h-gate kernel HWIO (``prepared.cell``).  Returns
+        (h', c') — ``c`` is updated in place."""
+        smaps, kps = self._signals(signals)
         return cell_ops.cell_step(h, c, xg, smaps.contiguous(),
                                   kps.contiguous(), kh)
 
@@ -190,8 +178,7 @@ class FusedConvLSTMCell(nn.Module):
         of ``ops.cell.cell_step_plain`` (the gate conv and signal taps in
         the compute dtype, the nonlinearities and state update in float32,
         h' and c' stored in h's dtype).  ``weight`` is the h-gate kernel
-        OIHW in the compute dtype (``gates_h.weight``, cast once per
-        forward by the caller), or its block of h's channels under TP
+        OIHW in the compute dtype (``prepared.cell``), or its block of h's channels under TP
         (:func:`tp_row_conv`; the bias is folded in ``xg``, the signal
         taps are added after the sum).  Returns (h', c')."""
         n, hh, ww, ch = h.shape
@@ -200,9 +187,7 @@ class FusedConvLSTMCell(nn.Module):
         else:
             acc = F.conv2d(h.permute(0, 3, 1, 2), weight, padding=1)
             acc = acc.permute(0, 2, 3, 1).float()
-        smaps = torch.stack([s for s, _ in signals], dim=-1).to(self.dtype)
-        kps = torch.stack([self._sgate(i).kp(cv)
-                           for i, (_, cv) in enumerate(signals)], dim=1)
+        smaps, kps = self._signals(signals)
         spad = F.pad(smaps, (0, 0, 1, 1, 1, 1)).float()
         taps = torch.stack([spad[:, dy:dy + hh, dx:dx + ww]
                             for dy in range(3) for dx in range(3)], dim=-1)
@@ -336,37 +321,9 @@ class Conditioner(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Fused conditioner+head evaluation: the compositions (``ops/compose.py``:
-# ``fuse_cond_head`` one entry in stock ops, ``cond_compose`` a stack of
-# entries in one kernel launch) and their per-step application.
+# Fused conditioner+head evaluation: the per-step application of the
+# compositions (``ops/compose.py``, prepared in ``models/prepared.py``).
 # ---------------------------------------------------------------------------
-
-
-def fuse_bank_heads(bank_k, bank_b, task_ids, head_raw: dict, map_h: int,
-                    map_w: int, differentiable: bool = False) -> dict:
-    """The composed conditioner+head of each sample's bank entry: every
-    field of :func:`fuse_cond_head` with a leading [N] axis.  The whole
-    bank is composed at once and gathered by ``task_ids`` [N] on the
-    bank's device, with no host sync: ids in a host tensor are checked
-    on the host (ValueError), ids on the card by an asynchronous device
-    assert.  The composition is :func:`ops.compose.cond_compose`, one
-    kernel launch on the card, or with ``differentiable`` (the training
-    forward's) its plain version in stock ops,
-    :func:`ops.compose.compose_bank_heads`: the kernel has no backward."""
-    k = bank_k.shape[0]
-    if task_ids.device.type == "cpu":
-        if task_ids.numel() and not (0 <= int(task_ids.min())
-                                     and int(task_ids.max()) < k):
-            raise ValueError(f"task ids {sorted(set(task_ids.tolist()))} "
-                             f"outside the bank of {k} heads")
-    else:
-        torch._assert_async(((task_ids >= 0) & (task_ids < k)).all(),
-                            f"task ids outside the bank of {k} heads")
-    compose = (compose_ops.compose_bank_heads if differentiable
-               else compose_ops.cond_compose)
-    bank = compose(bank_k, bank_b, head_raw, map_h, map_w)
-    ids = task_ids.to(bank_k.device)
-    return {key: v.index_select(0, ids) for key, v in bank.items()}
 
 
 def apply_fused_cond_head(h, fused: dict, dtype,
@@ -374,7 +331,7 @@ def apply_fused_cond_head(h, fused: dict, dtype,
     """Apply the composed conditioner+head to the ConvLSTM state ``h``
     [N, H, W, C], cast to ``dtype``: one :func:`fuse_cond_head` dict for
     the whole batch, or one per sample with a leading [N] axis on every
-    field (:func:`fuse_bank_heads`).  Returns (stop_logit [N, 1], amap
+    field (``prepared.fuse_bank_heads``).  Returns (stop_logit [N, 1], amap
     [N, H, W], drt_raw [N, h5, w5]) in float32 (float64 when ``h`` is),
     drt_raw being the pre-relu drt_layer_1 output for
     :meth:`PredictHead.finish_duration`.

@@ -18,7 +18,8 @@ on the running statistics (the eval and SCST forward), as flax's
 ``BatchNorm(momentum=0.9, epsilon=1e-5)`` computes it
 (:func:`batch_norm`).  :func:`fused_forward` is the inference path that
 serving runs: BN folded into the convs, the uniform blocks of layers 1-3
-through ``ops.block.stage_apply``.
+through ``ops.block.stage_apply``, on the weights ``models/prepared.py``
+derives once a weight version.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from torch import nn
 from ..ops import block as block_ops
 from ..train import mesh
 from ..utils import tracing
+from . import prepared
 
 # (planes, first-block stride, dilation) per stage after the dilation
 # patch — the JAX package's _STAGES table
@@ -197,51 +199,44 @@ def _conv_nhwc(x, k, b, stride=1, pad=0, dil=1):
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+def _bottleneck(x, convs, stride: int, dil: int, down=None):
+    """A bottleneck block on NHWC ``x`` with its convs folded
+    (``prepared.stage``): ``down`` the downsample's, else the identity
+    residual."""
+    (k1, b1), (k2, b2), (k3, b3) = convs
+    out = F.relu(_conv_nhwc(x, k1, b1, stride=stride))
+    out = F.relu(_conv_nhwc(out, k2, b2, pad=dil, dil=dil))
+    out = _conv_nhwc(out, k3, b3)
+    res = x if down is None else _conv_nhwc(x, *down, stride=stride)
+    return F.relu(out + res)
+
+
 def fused_forward(net: DilatedResNet50, images, dtype=torch.float32):
     """Inference forward of ``net`` with BN folded into the conv weights
     (exact eval semantics) and the uniform blocks of layers 1-3 run as
     whole stages by ``ops.block.stage_apply`` — the counterpart of the
     JAX package's ``fused_backbone_apply``.  The stem, the downsample
-    blocks and all of layer 4 are plain folded convolutions.
+    blocks and all of layer 4 are plain folded convolutions.  The folded
+    and stacked weights are ``prepared.stem`` and ``prepared.stage``'s,
+    made once a weight version.
 
     images: NHWC [N, H, W, 3]; returns NHWC [N, H/8, W/8, 2048] in
     ``dtype``.  One span, ``trunk`` (``utils/tracing.py``)."""
-
-    def fold(conv, bn):
-        k, b = block_ops.fold_conv_bn(conv, bn)
-        return k.to(dtype), b.to(dtype)
-
     with tracing.span("trunk"):
-        k1, b1 = fold(net.conv1, net.bn1)
-        x = F.relu(_conv_nhwc(images.to(dtype), k1, b1, stride=2, pad=3))
+        x = F.relu(_conv_nhwc(images.to(dtype), *prepared.stem(net, dtype),
+                              stride=2, pad=3))
         x = _ceil_maxpool(x.permute(0, 3, 1, 2)).permute(
             0, 2, 3, 1).contiguous()
-
-        for si, ((_, stride, dil), blocks) in enumerate(
-                zip(_STAGES, net.layers), start=1):
-            blk = net.block(si, 0)
-            kc1, bc1 = fold(blk.conv1, blk.bn1)
-            kc2, bc2 = fold(blk.conv2, blk.bn2)
-            kc3, bc3 = fold(blk.conv3, blk.bn3)
-            kd, bd = fold(blk.downsample_conv, blk.downsample_bn)
-            out = F.relu(_conv_nhwc(x, kc1, bc1, stride=stride))
-            out = F.relu(_conv_nhwc(out, kc2, bc2, pad=dil, dil=dil))
-            out = _conv_nhwc(out, kc3, bc3)
-            x = F.relu(out + _conv_nhwc(x, kd, bd, stride=stride))
-
-            rest = [net.block(si, bi) for bi in range(1, blocks)]
-            if si <= 3 and rest:
-                st = block_ops.stack_stage_params(rest, dtype)
+        for si, (_, stride, dil) in enumerate(_STAGES[:len(net.layers)],
+                                              start=1):
+            stage = prepared.stage(net, si, dtype)
+            x = _bottleneck(x, stage["first"], stride, dil, stage["down"])
+            st = stage["stack"]
+            if st is not None:
                 x = block_ops.stage_apply(x, dil, st["w1"], st["b1"], st["w2"],
                                           st["b2"], st["w3"], st["b3"])
-            else:
-                for blk in rest:
-                    kc1, bc1 = fold(blk.conv1, blk.bn1)
-                    kc2, bc2 = fold(blk.conv2, blk.bn2)
-                    kc3, bc3 = fold(blk.conv3, blk.bn3)
-                    out = F.relu(_conv_nhwc(x, kc1, bc1))
-                    out = F.relu(_conv_nhwc(out, kc2, bc2, pad=dil, dil=dil))
-                    x = F.relu(_conv_nhwc(out, kc3, bc3) + x)
+            for convs in stage["rest"]:
+                x = _bottleneck(x, convs, 1, dil)
         return x
 
 

@@ -12,8 +12,10 @@ A dilated ResNet-50 trunk feeds a T-step ConvLSTM decoder with spatial
 and semantic attention over each stream's fixation history.  The T steps
 are a Python loop over preallocated [N, T+1, ...] history buffers with a
 masked softmax; the step invariants (visual features, their channel
-mean, the x-gates with folded biases, the h-gate kernel and the composed
-conditioner+head kernels) are computed once per forward.  Each step is
+mean, the x-gates with folded biases) are computed once per forward, and
+the weights the kernels read (the BN-folded trunk, the h-gate kernel,
+the composed conditioner+head kernels) once per weight version
+(``models/prepared.py``).  Each step is
 one ``ops.cell.cell_step`` (both AiR streams in one call); the trunk's
 uniform blocks run through ``ops.block.stage_apply``.  That is the eval
 forward (:meth:`ScanpathModel.forward`, no gradients).  The training
@@ -44,9 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.datasets import COCO_OBJECT_NAMES
-from ..ops.compose import compose_bank_heads, cond_compose
 from ..utils import tracing
-from . import resnet
+from . import prepared, resnet
 from .components import (
     Conditioner,
     FusedConvLSTMCell,
@@ -57,10 +58,10 @@ from .components import (
     apply_fused_cond_head,
     conv2d,
     dense,
-    fuse_bank_heads,
     hwio,
     xavier_,
 )
+from .prepared import fuse_bank_heads
 
 TASK_MODES = {"osie": "single", "air": "dual", "coco": "bank"}
 
@@ -104,40 +105,21 @@ class ScanpathModel(nn.Module):
         return {"spat": spat, "spat_conv": self.spatial_att.project(spat),
                 "sem": sem, "sem_proj": self.semantic_att.project(sem)}
 
-    def composed_heads(self, differentiable: bool = False) -> list[dict]:
-        """The composed conditioner+head of every stream, from the
-        weights alone, by one :func:`ops.compose.cond_compose` call over
-        every conditioner entry (OSIE's one, AiR's two, COCO's bank), or
-        with ``differentiable`` (the training forward's) by its plain
-        version in stock ops, :func:`ops.compose.compose_bank_heads`: the
-        kernel has no backward.  One dict per stream, or for COCO one
-        whose fields lead with the bank's [K] axis.  A caller that keeps
-        them passes them to :meth:`forward` as ``heads``."""
-        compose = compose_bank_heads if differentiable else cond_compose
-        raw = self.head.raw()
-        pairs = self.conditioner.kernels()
-        if self.task == "coco":
-            (bank_k, bank_b), = pairs
-            return [compose(bank_k, bank_b, raw, self.map_h, self.map_w)]
-        bank = compose([k for k, _ in pairs], [b for _, b in pairs], raw,
-                       self.map_h, self.map_w)
-        return [{key: v[s] for key, v in bank.items()}
-                for s in range(len(pairs))]
-
     def _fused_heads(self, task_ids, heads=None, differentiable=False):
-        """The composed conditioner+head per stream, once per forward:
+        """The composed conditioner+head per stream (``prepared.heads``):
         one dict per stream, or for COCO one with a leading [N] axis
-        (each sample's bank entry, :func:`fuse_bank_heads`).  ``heads``
-        (:meth:`composed_heads`) replaces the composition: COCO's are
-        gathered by task id.  ``differentiable``: the training forward's
-        composition, in stock ops."""
+        (each sample's bank entry, ``prepared.fuse_bank_heads``).
+        ``heads`` (``prepared.heads`` kept by the caller) replaces the
+        composition: COCO's are gathered by task id
+        (``prepared.gather_heads``).  ``differentiable``: the training
+        forward's composition, in stock ops."""
         if self.task != "coco":
             return heads if heads is not None else \
-                self.composed_heads(differentiable)
+                prepared.heads(self, differentiable)
         if task_ids is None:
             raise ValueError("the coco model needs task_ids")
         if heads is not None:
-            return [{k: v[task_ids] for k, v in heads[0].items()}]
+            return [prepared.gather_heads(heads[0], task_ids)]
         (bank_k, bank_b), = self.conditioner.kernels()
         return [fuse_bank_heads(bank_k, bank_b, task_ids, self.head.raw(),
                                 self.map_h, self.map_w, differentiable)]
@@ -181,11 +163,9 @@ class ScanpathModel(nn.Module):
                     hist[key][:, 0] = v
                 hists.append(hist)
 
-            xg = self.lstm.fold_bias(self.xgates(visual))
-            if differentiable:
-                kh = self.lstm.gates_h.weight.to(dt)
-            else:
-                kh = self.lstm.gate_kernel()
+            kh, bias = prepared.cell(self.lstm, differentiable)
+            xg = (self.xgates(visual) + bias).contiguous()
+            cell = self.lstm.step if differentiable else self.lstm
             h, c = torch.zeros_like(visual), torch.zeros_like(visual)
             with tracing.span("decode.hoist.compose"):
                 fused = self._fused_heads(task_ids, heads, differentiable)
@@ -207,10 +187,7 @@ class ScanpathModel(nn.Module):
                                                  entry["sem"], valid)
                         signals.append((smem.reshape(n, mh, mw), cmem))
                 with tracing.span("decode.step.cell"):
-                    if differentiable:
-                        h, c = self.lstm.step(xg, h, c, signals, kh)
-                    else:
-                        h, c = self.lstm(xg, h, c, signals, kh)
+                    h, c = cell(xg, h, c, signals, kh)
                 with tracing.span("decode.step.head"):
                     for s, (fu, hist, out) in enumerate(zip(fused, hists,
                                                             outs)):
@@ -260,9 +237,9 @@ class ScanpathModel(nn.Module):
         ``ops.block.stage_apply`` and each decode step through
         ``ops.cell.cell_step``.  ``features`` [N, H, W, 2048], the
         trunk's grid, replaces the trunk (a head without one needs
-        them); ``heads``, :meth:`composed_heads` kept by the caller,
-        replaces the per-forward composition of the conditioner and
-        head."""
+        them); ``heads``, ``prepared.heads`` kept by the caller (a
+        serving bundle, ``serve/export.py``), replaces the model's own
+        composition of the conditioner and head."""
         return self.eval_forward(images, attention_maps, task_ids, features,
                                  heads)
 

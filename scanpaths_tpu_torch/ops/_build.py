@@ -24,12 +24,15 @@ import shutil
 import subprocess
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[2] / "build" / \
     "scanpaths_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# cached(): owner -> {name: (key, value, sources held)}
+_CACHE = WeakIdKeyDictionary()
 
 
 def find_nvcc() -> str:
@@ -131,17 +134,38 @@ def refuse_grad(name: str, *tensors) -> None:
             "with inputs that do not require grad")
 
 
+def cached(owner, name, sources, build):
+    """``build()`` under ``no_grad``, kept for ``owner`` (a module or a
+    tensor) under ``name`` until a tensor of ``sources`` changes its
+    identity (a view's is the tensor it views), storage, device, dtype
+    or version: the port's one rule for what it derives from weights.
+    The entry lives in a weak table, not on ``owner``, goes with it and
+    holds the other sources, so no later tensor takes one's identity.
+    Under ``torch.export`` or ``torch.compile``, or on tensors with no
+    storage, ``build()`` is traced as it is and nothing is kept."""
+    if torch.compiler.is_compiling():
+        return build()
+    roots = [t if t._base is None else t._base for t in sources]
+    try:
+        key = [(id(r), t.data_ptr(), t.device, t.dtype, t._version)
+               for r, t in zip(roots, sources)]
+    except RuntimeError:        # fake or functional tensors: traced
+        return build()
+    slots = _CACHE.setdefault(owner, {})
+    hit = slots.get(name)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        value = build()
+    slots[name] = (key, value, [r for r in roots if r is not owner])
+    return value
+
+
 def packed(t, pack):
-    """``pack(t)``, the layout a kernel reads a weight in, computed once
-    per tensor and kept on it until the tensor is changed in place (its
-    version counter moves), so a weight passed to many launches is
-    re-laid out once."""
-    hit = getattr(t, "_sp_packed", None)
-    if hit is not None and hit[0] is pack and hit[1] == t._version:
-        return hit[2]
-    out = pack(t)
-    t._sp_packed = (pack, t._version, out)
-    return out
+    """``pack(t)``, the layout a kernel reads a weight in, kept for ``t``
+    (:func:`cached`), so a weight passed to many launches is laid out
+    once a version."""
+    return cached(t, pack, (t,), lambda: pack(t))
 
 
 def grid_report(name: str, n_out: int, *args: int) -> list[int]:

@@ -24,51 +24,6 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def fold_bn(kernel, scale, beta, mean, var, eps: float = 1e-5):
-    """Fold inference BatchNorm into the preceding bias-free conv:
-    W' = W * s, b' = beta - mean * s with s = gamma / sqrt(var + eps)
-    (exact; ``kernel`` is OIHW, s scales the output channels)."""
-    s = scale / torch.sqrt(var + eps)
-    return kernel * s.reshape(-1, *([1] * (kernel.dim() - 1))), beta - mean * s
-
-
-def fold_conv_bn(conv, bn):
-    """(kernel, bias) of an ``nn.Conv2d`` followed by an eval-mode
-    ``nn.BatchNorm2d``, folded."""
-    return fold_bn(conv.weight, bn.weight, bn.bias, bn.running_mean,
-                   bn.running_var, bn.eps)
-
-
-def stack_stage_params(blocks, dtype) -> dict:
-    """Fold BN and stack the uniform blocks of a stage for the kernel.
-
-    ``blocks`` are :class:`models.resnet.Bottleneck` modules with equal
-    channel shapes and no downsample.  Returns w1 [B, C, M], w2 [B, 9M, M]
-    (tap-major rows, the HWIO kernel flattened), w3 [B, M, C] in
-    ``dtype`` and the float32 biases b1, b2 [B, M], b3 [B, C].
-    """
-    w1s, b1s, w2s, b2s, w3s, b3s = [], [], [], [], [], []
-    for blk in blocks:
-        k1, bb1 = fold_conv_bn(blk.conv1, blk.bn1)
-        k2, bb2 = fold_conv_bn(blk.conv2, blk.bn2)
-        k3, bb3 = fold_conv_bn(blk.conv3, blk.bn3)
-        m = k1.shape[0]
-        w1s.append(k1[:, :, 0, 0].t())
-        w2s.append(k2.permute(2, 3, 1, 0).reshape(9 * m, m))
-        w3s.append(k3[:, :, 0, 0].t())
-        b1s.append(bb1)
-        b2s.append(bb2)
-        b3s.append(bb3)
-    f32 = torch.float32
-    return dict(
-        w1=torch.stack(w1s).to(dtype).contiguous(),
-        b1=torch.stack(b1s).to(f32).contiguous(),
-        w2=torch.stack(w2s).to(dtype).contiguous(),
-        b2=torch.stack(b2s).to(f32).contiguous(),
-        w3=torch.stack(w3s).to(dtype).contiguous(),
-        b3=torch.stack(b3s).to(f32).contiguous())
-
-
 def _check(x, dil, w1, b1, w2, b2, w3, b3):
     if x.dim() != 4:
         raise ValueError(f"x must be [N, H, W, C], got {tuple(x.shape)}")
@@ -172,7 +127,8 @@ def _stage_apply_fake(x, dil, w1, b1, w2, b2, w3, b3):
 def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
     """Run a stack of uniform bottleneck blocks on a dense NHWC input.
 
-    x: [N, H, W, C]; weights stacked per block (:func:`stack_stage_params`).
+    x: [N, H, W, C]; weights stacked per block, BN folded
+    (``models.prepared.stack_stage_params``).
     Returns the stage output [N, H, W, C].  A CPU tensor runs
     :func:`stage_apply_plain`; a CUDA tensor runs ``csrc/block.cu``
     (C % 32 == 0, M % 32 == 0, contiguous and 16-byte aligned) or
@@ -180,7 +136,7 @@ def stage_apply(x, dil: int, w1, b1, w2, b2, w3, b3):
     grad mode when an input requires grad (no backward; the training
     trunk is ``models.resnet``'s stock-op forward).  The kernel reads
     the weights transposed (K contiguous): the CUDA kernel's wrapper
-    transposes each weight tensor once and keeps the result on it.
+    transposes each weight tensor once a version (``_build.packed``).
     """
     _build.refuse_grad("stage_apply", x, w1, b1, w2, b2, w3, b3)
     _check(x, dil, w1, b1, w2, b2, w3, b3)

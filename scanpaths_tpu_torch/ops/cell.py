@@ -19,8 +19,9 @@ return the new hidden state in a separate tensor.  Both run as the
 registered op ``scanpaths_tpu_torch::cell_step`` (:func:`cell_step_op`),
 which importing this module registers.  The kernel reads the
 gate kernel packed K-contiguous (:func:`pack_gate_kernel`); the wrapper
-packs each ``kh`` tensor once and keeps the packed form on it, so the 16
-steps of a forward, which share one ``kh``, pack it once.
+packs each ``kh`` tensor once a version (``_build.packed``), so the eval
+forward, whose ``kh`` is prepared once a weight version
+(``models/prepared.py``), packs it once a weight version.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ PyTorch ops; both as the registered op
 ``scanpaths_tpu_torch::cond_compose`` (:func:`cond_compose_op`), so an
 exported program launches the kernel.
 The kernel has no backward: the training forward composes with
-:func:`compose_bank_heads` itself (``ScanpathModel.composed_heads``).
+:func:`compose_bank_heads` itself (``models/prepared.py``).
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ corrections ``wr``, ``wc``, ``wcc`` of the latter.  It returns
 in float32 (float64 when ``h`` is).  The fields are one
 ``fuse_cond_head`` dict for the whole batch, or one per sample with a
 leading [N] axis on every field (COCO's bank,
-``components.fuse_bank_heads``).
+``models.prepared.gather_heads``).
 
 :func:`cond_head` runs the hand-written CUDA kernel (``csrc/head.cu``) on
 CUDA tensors and :func:`cond_head_plain`, the same computation in plain
@@ -182,7 +182,7 @@ def _cond_head_cuda(h, k_sa, b_sa, keff, wr, wc, wcc, b1map, bd):
         raise ValueError("the head kernel needs a contiguous, 16-byte "
                          "aligned h")
     # the kernel reads the fields 16 bytes at a time: a field that is a
-    # view (keff is one) or unaligned is copied, once per tensor
+    # view (keff is one) or unaligned is copied, once a tensor version
     fields = [t if t.is_contiguous() and t.data_ptr() % 16 == 0
               else _build.packed(t, _copy) for t in fields]
     h5, w5 = b1map.shape[-2:]

@@ -70,15 +70,11 @@ class ServeModule(nn.Module):
     package's ``build_serve_fn``.  ``stream`` picks the AiR stream
     ("good": the right-answer one, as ``cli/predict.py`` serves).
 
-    COCO's bank of conditioners is composed with the head once here,
-    every entry, into buffers gathered per call by task id
-    (``model.composed_heads``), where the live forward composes the
-    whole bank in each call.  The module then holds the model without
-    its conditioner, so the bank's weights stay out of a bundle.  The
-    other tasks compose in the forward, as the live model does, so a
-    bundle moved to another device computes what the live model computes
-    there (a COCO bundle keeps the composition of the device it was
-    exported on).  Greedy:
+    COCO's bank is composed with the head here (``prepared.heads``)
+    into buffers gathered per call by task id, and the module holds the
+    model without its conditioner, so the bank's weights stay out of a
+    bundle (which keeps the composition of the device it was exported
+    on).  The other tasks compose in the program, each call.  Greedy:
     ``forward(images[, attention_maps[, tasks]])``; sampled:
     ``forward(gumbel, normal, images, ...)`` with the noise of
     :func:`ops.sampling.sample_noise` at ``rollouts=R``.  Call it under
@@ -94,8 +90,8 @@ class ServeModule(nn.Module):
         self.prefix = f"{stream}_" if model.task == "air" else ""
         self.model, self.bank_keys = model, []
         if model.task == "coco":
-            with torch.no_grad():
-                bank, = model.composed_heads()
+            from ..models import prepared
+            bank, = prepared.heads(model)
             self.bank_keys = sorted(bank)
             for key in self.bank_keys:
                 self.register_buffer(f"bank_{key}", bank[key].clone())

@@ -75,15 +75,15 @@ def hoist(model, images) -> dict:
     OSIE model): the trunk's grid through the stage kernels, ``visual``
     and its channel mean, the folded x-gates, the cell's gate kernel and
     the composed conditioner+head."""
-    from ..models import resnet
+    from ..models import prepared, resnet
     from ..models.components import conv2d, hwio
     dt = model.dtype
     x = resnet.fused_forward(model.backbone, images, dt)
     k, b = hwio(model.sal_conv)
     visual = F.relu(conv2d(x, k, b, padding=((1, 1), (1, 1)), dtype=dt))
+    kh, bias = prepared.cell(model.lstm)
     return {"visual": visual, "vismean": visual.mean(dim=-1),
-            "xg": model.lstm.fold_bias(model.xgates(visual)),
-            "kh": model.lstm.gate_kernel(),
+            "xg": (model.xgates(visual) + bias).contiguous(), "kh": kh,
             "fused": model._fused_heads(None)[0]}
 
 

@@ -18,6 +18,7 @@ import torch
 
 from scanpaths_tpu.models.resnet import Bottleneck as FlaxBottleneck
 from scanpaths_tpu.ops import pallas_block as pb
+from scanpaths_tpu_torch.models import prepared
 from scanpaths_tpu_torch.models.resnet import Bottleneck
 from scanpaths_tpu_torch.ops import block
 from scanpaths_tpu_torch.utils import tracing
@@ -102,7 +103,7 @@ def test_stage_plain_matches_pallas_and_flax(h, w, c4, m, dil, nb):
                                              vs["batch_stats"][f"b{i}"]))
         blocks.append(blk)
     with torch.no_grad():
-        ours = block.stack_stage_params(blocks, torch.float32)
+        ours = prepared.stack_stage_params(blocks, torch.float32)
         # the stacked kernel operands equal the JAX package's
         for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
             np.testing.assert_allclose(ours[k].numpy(), np.asarray(st[k]),
@@ -130,8 +131,8 @@ def test_fold_bn_matches_jax():
     var = (np.abs(rng.standard_normal(16)) + 0.5).astype(f)
     kj, bj = pb.fold_bn(k, gamma, beta, mean, var)
     t = torch.from_numpy
-    kt, bt = block.fold_bn(t(k.transpose(3, 2, 0, 1).copy()), t(gamma),
-                           t(beta), t(mean), t(var))
+    kt, bt = prepared.fold_bn(t(k.transpose(3, 2, 0, 1).copy()), t(gamma),
+                              t(beta), t(mean), t(var))
     np.testing.assert_allclose(kt.numpy().transpose(2, 3, 1, 0),
                                np.asarray(kj), atol=1e-6, rtol=1e-6)
     np.testing.assert_allclose(bt.numpy(), np.asarray(bj), atol=1e-6,

@@ -17,6 +17,7 @@ import torch
 
 from scanpaths_tpu.models.components import FusedConvLSTMCell as FlaxCell
 from scanpaths_tpu.ops import pallas_cell as pc
+from scanpaths_tpu_torch.models import prepared
 from scanpaths_tpu_torch.models.components import FusedConvLSTMCell
 from scanpaths_tpu_torch.ops import _build, cell
 from scanpaths_tpu_torch.utils import tracing
@@ -160,8 +161,9 @@ def test_fused_cell_matches_flax_cell():
           "gates_s0.bias": t(p["gates_s0"]["bias"])}
     mod.load_state_dict(sd)
     with torch.no_grad():
-        hn, cn = mod(mod.fold_bias(t(xg)), t(hs), t(cs.copy()),
-                     [(t(smap), t(cv))])
+        kh, bias = prepared.cell(mod)
+        hn, cn = mod((t(xg) + bias).contiguous(), t(hs), t(cs.copy()),
+                     [(t(smap), t(cv))], kh)
     np.testing.assert_allclose(hn.numpy(), np.asarray(h_ref), atol=ATOL,
                                rtol=RTOL)
     np.testing.assert_allclose(cn.numpy(), np.asarray(c_ref), atol=ATOL,

@@ -28,7 +28,7 @@ from scanpaths_tpu.train.trainer import build_model, grid_spec
 from scanpaths_tpu.utils.checkpointing import save_pytree
 from scanpaths_tpu_torch.cli import export as export_cli
 from scanpaths_tpu_torch.cli import predict as predict_cli
-from scanpaths_tpu_torch.models import components, port
+from scanpaths_tpu_torch.models import port, prepared
 from scanpaths_tpu_torch.models.scanpath_model import ScanpathModel, \
     init_weights
 from scanpaths_tpu_torch.ops import block, cell
@@ -369,8 +369,8 @@ def test_bank_heads_composed_once_and_gathered_equal_fuse_bank_heads():
         ids = torch.tensor([4, 0, 4, 17, 0], dtype=torch.int32)
         (bank_k, bank_b), = m.conditioner.kernels()
         raw = m.head.raw()
-        want = components.fuse_bank_heads(bank_k, bank_b, ids, raw, 10, 10)
-        heads = m.composed_heads()
+        want = prepared.fuse_bank_heads(bank_k, bank_b, ids, raw, 10, 10)
+        heads = prepared.heads(m)
         got = {k: v[ids] for k, v in heads[0].items()}
         assert heads[0]["k_sa"].shape[0] == 18
         assert set(got) == set(want)

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from scanpaths_tpu_torch.models import components
+from scanpaths_tpu_torch.models import components, prepared
 from scanpaths_tpu_torch.models.scanpath_model import ScanpathModel, \
     init_weights
 from scanpaths_tpu_torch.ops import head
@@ -50,7 +50,7 @@ def _case(n, hh, ww, c, per_sample, dtype=torch.float32, seed=0,
     if per_sample:
         bank_k, bank_b = _conditioner(c, gen, dtype, k=3)
         ids = torch.arange(n) % 3
-        fused = components.fuse_bank_heads(bank_k, bank_b, ids, raw, hh, ww)
+        fused = prepared.fuse_bank_heads(bank_k, bank_b, ids, raw, hh, ww)
         cond = (bank_k[ids], bank_b[ids])
     else:
         cond = _conditioner(c, gen, dtype)

@@ -34,7 +34,7 @@ from scanpaths_tpu.train import trainer as jtrainer
 from scanpaths_tpu_torch.data import datasets as tdata
 from scanpaths_tpu_torch.metrics import device_eval as tdev
 from scanpaths_tpu_torch.models import components as tc
-from scanpaths_tpu_torch.models import port
+from scanpaths_tpu_torch.models import port, prepared
 from scanpaths_tpu_torch.models.scanpath_model import ScanpathModel
 from scanpaths_tpu_torch.ops import sampling as ts
 from scanpaths_tpu_torch.train import trainer as ttrainer
@@ -142,8 +142,8 @@ def test_conditioner_heads_match_jax(mode):
 
     ids = np.array([3, 1, 3, 0], np.int32)           # repeated and distinct
     (bk, bb), = got_k
-    fused = tc.fuse_bank_heads(bk.detach(), bb.detach(), t(ids), raw_t, mh,
-                               mw)
+    fused = prepared.fuse_bank_heads(bk.detach(), bb.detach(), t(ids), raw_t,
+                                     mh, mw)
     assert all(v.shape[0] == len(ids) for v in fused.values())
     got = tc.apply_fused_cond_head(t(h), fused, torch.float32)
     bank_k, bank_b = (np.asarray(v) for v in want_k[0])
@@ -159,8 +159,8 @@ def test_conditioner_heads_match_jax(mode):
             np.testing.assert_allclose(g[i:i + 1].numpy(), np.asarray(w),
                                        **tol)
     with pytest.raises(ValueError, match="outside the bank"):
-        tc.fuse_bank_heads(bk, bb, t(np.array([0, heads], np.int32)), raw_t,
-                           mh, mw)
+        prepared.fuse_bank_heads(bk, bb, t(np.array([0, heads], np.int32)),
+                                 raw_t, mh, mw)
 
 
 @pytest.mark.parametrize("task", TASKS)

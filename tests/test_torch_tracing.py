@@ -179,16 +179,22 @@ def test_counters_and_launches():
 def test_compositions_have_a_span_and_a_count(task, ids, composed):
     """An eval forward's ``decode.hoist`` holds one
     ``decode.hoist.compose``, and ``cond_head.composed`` rises by the
-    conditioner entries composed with the head: 1 for OSIE, 2 for AiR,
-    the whole bank of 18 for COCO whatever the target ids (all equal,
-    all distinct, repeated); with spans off it does not rise."""
+    conditioner entries composed with the head, once a weight version: 1
+    for OSIE, 2 for AiR, the whole bank of 18 for COCO whatever the
+    target ids (all equal, all distinct, repeated); with spans off it
+    does not rise, and a forward on unchanged weights composes
+    nothing."""
     model = _model(task)
     images, maps = _inputs(task, 3)
     task_ids = None if ids is None else torch.tensor(ids)
     tracing.reset_counters("cond_head.composed")
     model(images, maps, task_ids)
     assert tracing.counter("cond_head.composed") == 0
+    with torch.no_grad():
+        model.head.sal_layer_3.bias.add_(0.0)   # a new weight version
     tracing.enable()
+    model(images, maps, task_ids)
+    tracing.clear()
     model(images, maps, task_ids)
     tracing.disable()
     assert tracing.counter("cond_head.composed") == composed
