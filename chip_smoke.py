@@ -748,6 +748,15 @@ def _waves(label, grid, sms):
             f"{tiles / (sms * per_sm):.2f} waves")
 
 
+def _schedule(rep):
+    """The float32 cell kernel's persistent schedule (``cell.cell_grid``)."""
+    return (f"schedule {rep['ctas']} CTAs ({rep['per_sm']} per SM of "
+            f"{rep['sms']}), {rep['tiles']} tiles, {rep['split_tiles']} cut "
+            f"along K, the largest CTA's work {rep['most']} of a mean "
+            f"{rep['units'] / rep['ctas']:.2f} chunks "
+            f"({rep['most'] * rep['ctas'] / rep['units']:.4f})")
+
+
 def check_kernels(cell, block):
     """The cell, stage, head and compose kernels; returns {kernel:
     {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bf16_..."}}
@@ -766,10 +775,14 @@ def check_kernels(cell, block):
                   ("main S=2", (BATCH, 30, 40, 512, 2)),
                   ("ragged", (3, 7, 9, 64, 1)),
                   ("ragged S=2 C=96", (3, 5, 11, 96, 2))]
+    # float32 also at the benchmark's batch and at one image ("n16_",
+    # "n1_"): the persistent schedule's two regimes
+    f32_cases = [("n16", (16, 30, 40, 512, 1)), ("n1", (1, 30, 40, 512, 1))]
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         dname = str(dtype).split(".")[-1]
         pre = "" if dtype == torch.float32 else "bf16_"
-        for label, shape in cell_cases:
+        for label, shape in cell_cases + (
+                f32_cases if dtype == torch.float32 else []):
             a = _cell_inputs(*shape, dtype, gen)
             c_k, c_p = a["c"].clone(), a["c"].clone()
             args = (a["xg"], a["smaps"], a["kps"], a["kh"])
@@ -779,7 +792,7 @@ def check_kernels(cell, block):
             err = max(_close(f"cell {label} {dname} h'", h_k, h_p, tol),
                       _close(f"cell {label} {dname} c'", c_k, c_p, tol))
             line = f"[kernels] cell {label} {shape} {dname}: max_abs_err {err:.3g}"
-            if label.startswith("main"):
+            if not label.startswith("ragged"):
                 c_t = a["c"].clone()
                 ms, plain_ms = _pair_ms(
                     lambda: cell.cell_step(a["h"], c_t, *args),
@@ -787,13 +800,17 @@ def check_kernels(cell, block):
                 bound_ms, bound_by = cell_bound(*shape, dtype)
                 n, h, w, c, _ = shape
                 flops = 2 * n * h * w * 9 * c * 4 * c
+                grid = cell.cell_grid(n, h, w, c, dtype)
                 line += (f", {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
                          f"{bound_ms:.3f} ms by {bound_by}; gate conv "
-                         f"{_rate(flops, ms, bound_ms)}); "
-                         + _waves("grid", cell.cell_grid(n, h, w, c, dtype),
-                                  sms))
-                # S=1 (OSIE, COCO) unprefixed, S=2 (AiR) under "s2_"
-                sp = pre + ("" if label == "main S=1" else "s2_")
+                         f"{_rate(flops, ms, bound_ms)}); " + (
+                             _schedule(grid) if dtype == torch.float32 else
+                             _waves("grid", (*grid["grid"], grid["per_sm"]),
+                                    sms)))
+                # S=1 (OSIE, COCO) unprefixed, S=2 (AiR) under "s2_", the
+                # float32 batches of 16 and 1 under "n16_", "n1_"
+                sp = pre + {"main S=1": "", "main S=2": "s2_"}.get(
+                    label, label + "_")
                 summary["cell_step"].update({
                     sp + "max_abs_err": err, sp + "ms": ms,
                     sp + "plain_ms": plain_ms, sp + "bound_ms": bound_ms,
@@ -4802,7 +4819,8 @@ def run_entry_slice(cell, block, nw, tmp, smi):
 
 def print_ptxas(log):
     """One line per compiled kernel from ptxas -v: its name with template
-    arguments, registers, spills and shared memory."""
+    arguments, registers, spills and shared memory.  Raises if the
+    float32 cell kernel spills."""
     import re
     name, spill = None, ""
     for line in log.splitlines():
@@ -4818,6 +4836,9 @@ def print_ptxas(log):
         elif "registers" in line and name:
             print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}",
                   flush=True)
+            if name.startswith("cell_f32") and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                raise AssertionError(f"{name} spills: {spill}")
             name = None
 
 

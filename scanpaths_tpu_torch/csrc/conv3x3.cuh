@@ -1,4 +1,6 @@
-// Implicit-GEMM convolution tiles shared by cell.cu and block.cu.
+// Implicit-GEMM convolution tiles shared by cell.cu and block.cu (the
+// float32 cell kernel has a loop of its own in cell.cu, over the TMA and
+// barrier helpers here).
 //
 // One thread block computes a 128-pixel x BN tile of
 //   out[p, n] = sum_{tap, k} in[pixel p shifted by tap, k] * wt[n, tap*Cin + k]
@@ -15,15 +17,14 @@
 // * float (conv_igemm_f32): CUDA-core FMAs, so that results match a
 //   float32 reference computed without TF32.  256 threads, a TM x BN
 //   tile with a TM/16 x BN/16 register micro-tile, and a 3-stage cp.async
-//   ring with one barrier per 32-deep K chunk.  The cell runs 128 x 128
-//   (8 x 8 within 128 registers: two blocks an SM; 16 vector loads feed
-//   256 FMAs, one shared byte per FMA), the stage's products 64 x 64 (4 x
-//   4 at three blocks an SM, which measured faster at the stage's shapes
-//   than the wider tiles).  A and B both sit K-contiguous in shared
-//   memory (row stride 36 floats), so the copies land without transposing
-//   stores and each thread reads 16-byte vectors along K from rows that
-//   fall in distinct banks.  Each accumulator sums its K terms in one
-//   chain, in order (tap-major, then channel).
+//   ring with one barrier per 32-deep K chunk.  The stage's products
+//   run 64 x 64 (4 x 4 at three blocks an SM, which measured faster at
+//   the stage's shapes than the wider tiles).  A and B both sit
+//   K-contiguous in shared memory (row stride 36 floats), so the copies
+//   land without transposing stores and each thread reads 16-byte
+//   vectors along K from rows that fall in distinct banks.  Each
+//   accumulator sums its K terms in one chain, in order (tap-major, then
+//   channel).
 //
 // * bf16 (conv_igemm_wgmma): tensor cores through wgmma, warp
 //   specialised.  384 threads: warpgroup 0 produces, warpgroups 1 and 2
@@ -157,22 +158,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---------------------------------------------------------------- float
 
-// Column maps of the float path: tile column (slot) l reads weight row
+// The column map of the float path: tile column (slot) l reads weight row
 // row(l).  Thread tx of the 16 x 16 thread grid owns slots tx + 16 v.
 struct DenseCols {
   int n0, ncols;
   __device__ int row(int l) const { return n0 + l; }
   __device__ bool valid(int l) const { return n0 + l < ncols; }
-};
-
-// Slot l = g * CH + j -> gate g of channel c0 + j (weight row g*C + c0 + j):
-// with CH = 32 and BN = 128, thread tx's slots tx + 16 v hold gate v / 2
-// of channel c0 + 16 * (v % 2) + tx, all four gates of two channels.
-template <int CH>
-struct GateCols {
-  int c0, C;
-  __device__ int row(int l) const { return (l / CH) * C + c0 + l % CH; }
-  __device__ bool valid(int) const { return true; }
 };
 
 constexpr int F32_BK = 32, F32_LD = F32_BK + 4, F32_STAGES = 3;
@@ -561,40 +552,50 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a bf16 matrix [rows, cols] (row-major, cols % 8 ==
-// 0), box box_cols x box_rows, zeros outside; `swizzle` for a wgmma
-// operand (box_cols = 64), plain for an epilogue operand.  Returns a
-// cudaError_t value (0 = success).
+// The tensor map of a bf16 (or, with f32, float32) matrix [rows, cols]
+// (row-major, rows 16-byte aligned), box box_cols x box_rows, zeros
+// outside; `swizzle` (128-byte) for an operand read in 128-byte rows
+// (box_cols = 64 bf16 or 32 floats), plain for an epilogue operand.
+// Returns a cudaError_t value (0 = success).
 inline int matrix_map(CUtensorMap* map, const void* ptr, int cols, int rows,
-                      int box_cols, int box_rows, bool swizzle) {
+                      int box_cols, int box_rows, bool swizzle,
+                      bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor map of a packed bf16 weight wt [nrows, taps * cin] seen as
-// [cin, taps, nrows] (innermost first), box 64 x 1 x box_rows, 128-byte
-// swizzle, zeros outside.  Returns a cudaError_t value (0 = success).
+// The tensor map of a packed bf16 (or, with f32, float32) weight wt
+// [nrows, taps * cin] seen as [cin, taps, nrows] (innermost first), box
+// (64 bf16 or 32 floats: 128 bytes) x 1 x box_rows, 128-byte swizzle,
+// zeros outside.  Returns a cudaError_t value (0 = success).
 inline int weight_map(CUtensorMap* map, const void* wt, int cin, int taps,
-                      int nrows, int box_rows) {
+                      int nrows, int box_rows, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t esize = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cin, (cuuint64_t)taps,
                               (cuuint64_t)nrows};
-  const cuuint64_t strides[2] = {(cuuint64_t)cin * 2,
-                                 (cuuint64_t)taps * cin * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)WG_BK, 1, (cuuint32_t)box_rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)cin * esize,
+                                 (cuuint64_t)taps * cin * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), 1,
+                             (cuuint32_t)box_rows};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUresult r = fn(map,
+                        f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        3,
                         const_cast<void*>(wt), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -22,9 +22,18 @@ gate kernel packed K-contiguous (:func:`pack_gate_kernel`); the wrapper
 packs each ``kh`` tensor once a version (``_build.packed``), so the eval
 forward, whose ``kh`` is prepared once a weight version
 (``models/prepared.py``), packs it once a weight version.
+
+The float32 kernel is persistent: one wave of CTAs walks a static list
+of work (:func:`cell_schedule`, :func:`cell_work`), cutting the tiles
+of a ragged last round along K; the pieces meet in a workspace that the
+wrapper keeps per device, stream and schedule (:func:`_workspace`).  Each
+launch adds the tiles it cuts to the counter ``cell_step.split_tiles``.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -106,6 +115,106 @@ def cell_step_op(h: torch.Tensor, c: torch.Tensor, xg: torch.Tensor,
     return cell_step_plain(h, c, xg, smaps, kps, kh)[0]
 
 
+# the float32 kernel's tile: 128 pixels x 64 channels (32 when C % 64 != 0)
+# x 4 gates, its K (9 taps x C) in chunks of 32
+TILE_PIXELS, CHUNK = 128, 32
+
+
+class Schedule(NamedTuple):
+    """The float32 kernel's persistent schedule at one shape: ``ctas``
+    CTAs over ``tiles`` tiles of ``chunks`` K chunks each; ``rounds``
+    rounds of whole tiles, after the first ``cut`` tiles, whose
+    (tile, chunk) units are dealt in ``ctas`` equal ranges; ``split_tiles``
+    of those are cut inside; ``most`` is the largest CTA's units, of
+    ``units`` in all."""
+    ctas: int
+    tiles: int
+    split_tiles: int
+    most: int
+    units: int
+    width: int
+    chunks: int
+    rounds: int
+    cut: int
+
+    def bound(self, r: int) -> int:
+        """The first unit of range ``r`` (0 .. ctas)."""
+        return self.cut * self.chunks * r // self.ctas
+
+    @property
+    def max_over_mean(self) -> float:
+        return self.most * self.ctas / self.units
+
+
+@functools.lru_cache(maxsize=64)
+def cell_schedule(n: int, hh: int, ww: int, ch: int, slots: int) -> Schedule:
+    """The schedule of the float32 kernel at [n, hh, ww, ch] on a card
+    that holds ``slots`` CTAs at once (SMs x CTAs an SM), as
+    ``csrc/cell.cu`` (``Sched``) computes it: ``min(slots, units)`` CTAs;
+    when the tiles do not fill whole rounds, the ragged round and the
+    one before it are cut along K, so every range spans at least a tile
+    and every CTA ends with the same work to within one chunk."""
+    width = 64 if ch % 64 == 0 else 32
+    tiles = -(-(n * hh * ww) // TILE_PIXELS) * (ch // width)
+    chunks = 9 * ch // CHUNK
+    ctas = min(slots, tiles * chunks)
+    rounds = tiles // ctas
+    if tiles % ctas and rounds:
+        rounds -= 1
+    cut = tiles - rounds * ctas
+    units = cut * chunks
+    bounds = [units * r // ctas for r in range(ctas + 1)]
+    split = len({b // chunks for b in bounds[1:-1] if b % chunks})
+    most = rounds * chunks + max(b - a for a, b in zip(bounds, bounds[1:]))
+    return Schedule(ctas, tiles, split, most, tiles * chunks, width, chunks,
+                    rounds, cut)
+
+
+def cell_work(sched: Schedule) -> list[list[tuple[int, int, int]]]:
+    """Each CTA's items in the order it walks them, (tile, first chunk,
+    end chunk): CTA b takes range ctas - 1 - b of the cut units, then the
+    whole tiles cut + b + ctas i."""
+    out = []
+    for b in range(sched.ctas):
+        r = sched.ctas - 1 - b
+        items, u, hi = [], sched.bound(r), sched.bound(r + 1)
+        while u < hi:
+            t, k0 = divmod(u, sched.chunks)
+            k1 = min(sched.chunks, k0 + hi - u)
+            items.append((t, k0, k1))
+            u += k1 - k0
+        items += [(sched.cut + b + sched.ctas * i, 0, sched.chunks)
+                  for i in range(sched.rounds)]
+        out.append(items)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(device: int, width: int) -> int:
+    """CTAs of the float32 kernel the card holds at once."""
+    with torch.cuda.device(device):
+        rep = cell_grid(1, 1, 1, width, torch.float32)
+    return rep["sms"] * rep["per_sm"]
+
+
+_WORKSPACES: dict = {}
+
+
+def _workspace(device: torch.device, stream: int, sched: Schedule):
+    """(partial sums, flags) for the cut pieces of a launch, kept per
+    device, stream and schedule: a slot of 256 x 2 x width floats a CTA
+    (each thread's 16 x 4 x width / 32 sums), and a flag a CTA, zeroed
+    here once and left zero by every launch."""
+    key = (device, stream, sched.ctas, sched.width)
+    hit = _WORKSPACES.get(key)
+    if hit is None:
+        hit = _WORKSPACES[key] = (
+            torch.empty(sched.ctas * 256 * 2 * sched.width,
+                        dtype=torch.float32, device=device),
+            torch.zeros(sched.ctas, dtype=torch.int32, device=device))
+    return hit
+
+
 @cell_step_op.register_kernel("cuda")
 def _cell_step_cuda(h, c, xg, smaps, kps, kh):
     n, hh, ww, ch = h.shape
@@ -116,11 +225,21 @@ def _cell_step_cuda(h, c, xg, smaps, kps, kh):
         raise ValueError("the cell kernel needs contiguous, 16-byte "
                          "aligned tensors")
     h_out = torch.empty_like(h)
-    fn = _build.kernel("sp_cell_step", 7, 6)
+    fn = _build.kernel("sp_cell_step", 9, 7)
     with torch.cuda.device(h.device):
-        err = fn(*(t.data_ptr() for t in ts), h_out.data_ptr(),
-                 n, hh, ww, ch, smaps.shape[-1], _DTYPES[h.dtype],
-                 torch.cuda.current_stream(h.device).cuda_stream)
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        ws = flags = ctas = 0
+        if h.dtype == torch.float32:
+            sched = cell_schedule(n, hh, ww, ch, _slots(
+                h.device.index, 64 if ch % 64 == 0 else 32))
+            ctas = sched.ctas
+            if sched.split_tiles:
+                ws, flags = (t.data_ptr() for t in
+                             _workspace(h.device, stream, sched))
+            tracing.count("cell_step.split_tiles", sched.split_tiles)
+        err = fn(*(t.data_ptr() for t in ts), h_out.data_ptr(), ws, flags,
+                 n, hh, ww, ch, smaps.shape[-1], _DTYPES[h.dtype], ctas,
+                 stream)
     _build.check("sp_cell_step", err)
     tracing.count("cell_step.launches")
     return h_out
@@ -156,8 +275,17 @@ def cell_step(h, c, xg, smaps, kps, kh):
     return cell_step_op(h, c, xg, smaps, kps, kh), c
 
 
-def cell_grid(n: int, hh: int, ww: int, ch: int, dtype) -> list[int]:
-    """[grid x, grid y, blocks per SM] of the CUDA kernel at this shape
-    (needs the card)."""
-    return _build.grid_report("sp_cell_grid", 3, n, hh, ww, ch,
-                              _DTYPES[dtype])
+def cell_grid(n: int, hh: int, ww: int, ch: int, dtype) -> dict:
+    """What the CUDA kernel's launch at this shape looks like (needs the
+    card): for float32 its persistent schedule, {"ctas", "tiles",
+    "split_tiles", "most", "units", "per_sm", "sms"} (``most`` the
+    largest CTA's (tile, chunk) units, of ``units``; it agrees with
+    :func:`cell_schedule`); for bfloat16 {"grid": [x, y], "per_sm"}."""
+    if dtype == torch.float32:
+        keys = ("ctas", "tiles", "split_tiles", "most", "units", "per_sm",
+                "sms")
+        return dict(zip(keys, _build.grid_report("sp_cell_grid", 7, n, hh,
+                                                 ww, ch, _DTYPES[dtype])))
+    gx, gy, per_sm = _build.grid_report("sp_cell_grid", 3, n, hh, ww, ch,
+                                        _DTYPES[dtype])
+    return {"grid": [gx, gy], "per_sm": per_sm}

@@ -6,17 +6,17 @@ in float32 on the CPU.  The Pallas kernel runs in interpret mode on the
 JAX side only, fed through its flat padded-row layout helpers; the port
 takes the same tensors dense NHWC.  Tolerance atol 5e-6 / rtol 1e-5:
 the sums are the same up to float reassociation (the bound of
-tests/test_pallas_cell.py).
+tests/test_pallas_cell.py).  The tests marked ``gpu`` hold the CUDA
+kernel to the plain step on the card, and its persistent schedule to
+the kernel's own report; they skip without one.  JAX is imported inside
+the tests that compare with it, so this file runs on a card that has
+no JAX.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from scanpaths_tpu.models.components import FusedConvLSTMCell as FlaxCell
-from scanpaths_tpu.ops import pallas_cell as pc
 from scanpaths_tpu_torch.models import prepared
 from scanpaths_tpu_torch.models.components import FusedConvLSTMCell
 from scanpaths_tpu_torch.ops import _build, cell
@@ -39,6 +39,9 @@ def _inputs(rng, n, h, w, c, s):
 
 def _pallas(a, h, w):
     """The JAX Pallas step (interpret mode) on dense inputs."""
+    import jax.numpy as jnp
+
+    from scanpaths_tpu.ops import pallas_cell as pc
     f32 = jnp.float32
     geo = pc.geometry(h, w)
     n, c = a["h"].shape[0], a["h"].shape[-1]
@@ -136,6 +139,9 @@ def test_cell_step_refuses_grad_on_the_card():
 def test_fused_cell_matches_flax_cell():
     """FusedConvLSTMCell (biases folded into xg once, then cell_step)
     against the flax cell, from the same weights, one signal stream."""
+    import jax
+
+    from scanpaths_tpu.models.components import FusedConvLSTMCell as FlaxCell
     n, h, w, e = 2, 5, 6, 32
     rng = np.random.default_rng(3)
     f = np.float32
@@ -229,9 +235,19 @@ def test_plain_step_runs_in_float64_and_the_kernel_path_refuses_it():
 
 
 # kernel edge cases: pixel counts off the 128-pixel tile, both signal
-# stream counts, and C % 64 != 0 (the narrower bf16 gate tile)
+# stream counts, and C % 64 != 0 (the narrower gate tile)
 GPU_CASES = [(2, 7, 9, 64, 1), (2, 7, 9, 64, 2), (3, 5, 11, 96, 2),
              (1, 30, 40, 128, 1)]
+# the benchmark's float32 shapes: 16 images (tiles cut along K after 8
+# whole rounds) and one (every tile cut), one and two streams
+BENCH_CASES = [(16, 30, 40, 512, 1), (16, 30, 40, 512, 2),
+               (1, 30, 40, 512, 1), (1, 30, 40, 512, 2)]
+
+
+def _card_args(a, dtype):
+    t = lambda x: torch.from_numpy(x).cuda().to(dtype)  # noqa: E731
+    return t(a["h"]), (t(a["xg"]), t(np.stack(a["smaps"], -1)),
+                       t(np.stack(a["kps"], 1)), t(a["kh"])), t(a["c"])
 
 
 @pytest.mark.gpu
@@ -242,12 +258,91 @@ def test_cell_kernel_matches_plain_on_the_card(dtype, tol):
         pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(4)
-    for n, h, w, c, s in GPU_CASES:
-        a = _inputs(rng, n, h, w, c, s)
-        t = lambda x: torch.from_numpy(x).cuda().to(dtype)  # noqa: E731
-        args = (t(a["xg"]), t(np.stack(a["smaps"], -1)),
-                t(np.stack(a["kps"], 1)), t(a["kh"]))
-        h1, c1 = cell.cell_step(t(a["h"]), t(a["c"].copy()), *args)
-        h2, c2 = cell.cell_step_plain(t(a["h"]), t(a["c"].copy()), *args)
+    cases = GPU_CASES + (BENCH_CASES if dtype == torch.float32 else [])
+    for n, h, w, c, s in cases:
+        hs, args, cs = _card_args(_inputs(rng, n, h, w, c, s), dtype)
+        h1, c1 = cell.cell_step(hs, cs.clone(), *args)
+        h2, c2 = cell.cell_step_plain(hs, cs.clone(), *args)
         torch.testing.assert_close(h1, h2, atol=tol, rtol=tol)
         torch.testing.assert_close(c1, c2, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_float32_cell_kernel_is_deterministic_on_the_card():
+    """Two calls on the same inputs give the same bits: the pieces of a
+    tile cut along K are added by its owner in one fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(8)
+    for n, h, w, c, s in [(16, 30, 40, 512, 1), (1, 30, 40, 512, 2),
+                          (3, 5, 11, 96, 2)]:
+        hs, args, cs = _card_args(_inputs(rng, n, h, w, c, s),
+                                  torch.float32)
+        before = tracing.counter("cell_step.split_tiles")
+        h1, c1 = cell.cell_step(hs, cs.clone(), *args)
+        h2, c2 = cell.cell_step(hs, cs.clone(), *args)
+        assert torch.equal(h1, h2) and torch.equal(c1, c2)
+        sched = cell.cell_schedule(n, h, w, c, cell._slots(
+            torch.cuda.current_device(), 64 if c % 64 == 0 else 32))
+        assert sched.split_tiles > 0
+        assert tracing.counter("cell_step.split_tiles") - before == \
+            2 * sched.split_tiles
+
+
+@pytest.mark.gpu
+def test_cell_grid_reports_the_schedule_on_the_card():
+    """``sp_cell_grid`` (the kernel's own arithmetic) and
+    :func:`cell.cell_schedule` give the same persistent schedule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
+    for shape in SCHEDULE_SHAPES:
+        rep = cell.cell_grid(*shape, torch.float32)
+        sched = cell.cell_schedule(*shape, rep["sms"] * rep["per_sm"])
+        assert (rep["ctas"], rep["tiles"], rep["split_tiles"], rep["most"],
+                rep["units"]) == (sched.ctas, sched.tiles,
+                                  sched.split_tiles, sched.most, sched.units)
+
+
+# N = 1, 8 and 16 at the benchmark's map and width, a ragged pixel count
+# and C % 64 != 0
+SCHEDULE_SHAPES = [(1, 30, 40, 512), (8, 30, 40, 512), (16, 30, 40, 512),
+                   (3, 7, 9, 64), (3, 5, 11, 96)]
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES)
+def test_cell_schedule_covers_every_chunk_once(shape):
+    """The float32 kernel's persistent schedule on an H100 (132 SMs, one
+    CTA each): every (tile, K chunk) falls to exactly one CTA, no CTA's
+    work passes the mean by a chunk or more, the summary agrees with the
+    items the CTAs walk, and the owner of a cut tile (the CTA holding its
+    first chunk) waits only on lower CTAs, for the first item they walk."""
+    sched = cell.cell_schedule(*shape, 132)
+    work = cell.cell_work(sched)
+    assert len(work) == sched.ctas <= 132
+    seen = np.zeros((sched.tiles, sched.chunks), dtype=np.int64)
+    for items in work:
+        for t, k0, k1 in items:
+            assert 0 <= k0 < k1 <= sched.chunks
+            seen[t, k0:k1] += 1
+    assert (seen == 1).all()
+    units = [sum(k1 - k0 for _, k0, k1 in items) for items in work]
+    assert sum(units) == sched.units == sched.tiles * sched.chunks
+    assert max(units) == sched.most
+    assert max(units) - sched.units / sched.ctas < 1
+    pieces = {}
+    for b, items in enumerate(work):
+        for pos, (t, k0, k1) in enumerate(items):
+            if k1 - k0 < sched.chunks:
+                pieces.setdefault(t, []).append((k0, b, pos))
+    assert len(pieces) == sched.split_tiles
+    for t, ps in pieces.items():
+        ps.sort()
+        k0, owner, _ = ps[0]
+        assert k0 == 0 and t < sched.cut
+        for _, b, pos_b in ps[1:]:
+            assert b < owner and pos_b == 0   # lower blocks, first items
+    if shape[0] == 16:
+        # no CTA ends the step on a whole tile alone: the split evens it
+        assert sched.split_tiles > 0 and sched.rounds >= 1
+    if shape[0] == 1:
+        assert sched.ctas == 132 and sched.rounds == 0
